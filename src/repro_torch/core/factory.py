@@ -1,0 +1,174 @@
+"""Engine factory of the PyTorch port: one spec resolves an engine.
+
+The same surface as the JAX package's ``core/factory.py``::
+
+    from repro_torch.core.factory import EngineSpec, make_engine
+
+    eng = make_engine(EngineSpec(engine="pqe", width=4096))   # on cuda
+    state = eng.init(seed=0)
+    state, res = eng.tick(state, keys, vals, mask, rm_count)
+
+Only the paper's combined queue (``"pqe"``) is ported so far; any other
+kind raises ``ValueError`` naming the registered kinds.  Engines run on
+``device="cuda"`` unless the caller passes ``device="cpu"``; the
+``"cuda"`` kernel backend on a CPU device raises at construction.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core import pqueue
+from repro_torch.core.config import PQConfig
+
+
+@runtime_checkable
+class QueueEngine(Protocol):
+    """What every queue engine exposes (structural, checked at runtime)."""
+
+    def init(self, *, seed: int = 0) -> Any: ...
+
+    def tick(self, state, add_keys, add_vals, add_mask, rm_count): ...
+
+    def tick_n(self, state, add_keys, add_vals, add_mask, rm_counts): ...
+
+    def stats(self, state) -> Any: ...
+
+    def resident(self, state): ...
+
+    def relax_bound(self, rm_count: int) -> int: ...
+
+
+#: PQConfig knobs of the paper's §2.1 adaptive moveHead policy
+_DETACH_KNOBS = (
+    "detach_min",
+    "detach_max",
+    "detach_init",
+    "halve_threshold",
+    "double_threshold",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """The spec fields the combined queue reads."""
+
+    engine: str = "pqe"
+    width: int = 256  # op-batch width W per tick
+    base: Optional[PQConfig] = None  # None -> default_base(width)
+
+    # "cuda" | "torch"; None keeps the base config's backend
+    backend: Optional[str] = None
+
+    # paper §2.1 adaptive-detach knobs; None keeps the base config value
+    detach_min: Optional[int] = None
+    detach_max: Optional[int] = None
+    detach_init: Optional[int] = None
+    halve_threshold: Optional[int] = None
+    double_threshold: Optional[int] = None
+
+
+def default_base(width: int) -> PQConfig:
+    """A width-`width` single-queue base config (the bench geometry)."""
+    return PQConfig(
+        a_max=width,
+        r_max=width,
+        seq_cap=max(4096, 4 * width),
+        n_buckets=64,
+        bucket_cap=max(64, width // 32),
+        detach_min=8,
+        detach_max=65536,
+        detach_init=256,
+        halve_threshold=1000,
+        double_threshold=100,
+    )
+
+
+def resolved_base(spec: EngineSpec) -> PQConfig:
+    """The spec's base config with its detach knobs and backend applied
+    (PQConfig validates the backend spelling)."""
+    base = spec.base if spec.base is not None else default_base(spec.width)
+    over = {
+        k: getattr(spec, k) for k in _DETACH_KNOBS if getattr(spec, k) is not None
+    }
+    if spec.backend is not None:
+        over["backend"] = spec.backend
+    return dataclasses.replace(base, **over) if over else base
+
+
+_REGISTRY: Dict[str, Callable[..., Any]] = {}
+
+
+def register(name: str):
+    """Register an engine builder ``(spec, *, device) -> QueueEngine``."""
+
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def engine_kinds():
+    return sorted(_REGISTRY)
+
+
+def make_engine(spec: EngineSpec, *, device="cuda") -> QueueEngine:
+    """Resolve ``spec.engine`` through the registry and build the engine
+    on ``device``."""
+    try:
+        build = _REGISTRY[spec.engine]
+    except KeyError:
+        raise ValueError(
+            f"unknown or not yet ported engine {spec.engine!r} "
+            f"(have {engine_kinds()})"
+        ) from None
+    return build(spec, device=torch.device(device))
+
+
+class PQEngine:
+    """The paper's combined queue (repro_torch.core.pqueue) as an engine."""
+
+    kind = "pqe"
+
+    def __init__(self, cfg: PQConfig, device: torch.device):
+        if cfg.backend == "cuda" and device.type != "cuda":
+            raise ValueError(
+                f"the cuda kernel backend needs a cuda device, got {device}; "
+                "pass backend='torch' to run on the CPU")
+        self.cfg = cfg
+        self.device = device
+
+    @property
+    def width(self) -> int:
+        return self.cfg.a_max
+
+    def init(self, *, seed: int = 0):
+        del seed  # deterministic structure, no router PRNG
+        return pqueue.init(self.cfg, self.device)
+
+    def tick(self, state, add_keys, add_vals, add_mask, rm_count):
+        return pqueue.tick(self.cfg, state, add_keys, add_vals, add_mask, rm_count)
+
+    def tick_n(self, state, add_keys, add_vals, add_mask, rm_counts):
+        return pqueue.tick_n(self.cfg, state, add_keys, add_vals, add_mask, rm_counts)
+
+    def stats(self, state):
+        return state.stats
+
+    def resident(self, state):
+        return pqueue.resident(self.cfg, state)
+
+    def relax_bound(self, rm_count: int) -> int:
+        return int(rm_count)  # exact queue: removes are true minima
+
+    def size(self, state):
+        return pqueue.size(state)
+
+
+@register("pqe")
+def _build_pqe(spec: EngineSpec, *, device: torch.device) -> PQEngine:
+    return PQEngine(resolved_base(spec), device)

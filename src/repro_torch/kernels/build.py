@@ -1,0 +1,89 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
+a plain C interface under ``build/`` at the repository root, on first
+use, and loads with ``ctypes`` (every pointer and the stream as
+``c_void_p``).  The library's file name carries a hash of its source, so
+an edited kernel never loads a stale build.  Kernels build only from the
+sources in this package; a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LOADED: dict = {}
+
+#: per kernel: (seconds the build took, compiler output); empty on a reuse
+BUILD_LOG: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names=None) -> None:
+    """Compile every named kernel source (default: all of ``csrc/*.cu``)
+    that has no current build, one ``nvcc`` per source, all at once."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        BUILD_LOG[name] = (time.perf_counter() - t0, log)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    lib = ctypes.CDLL(str(_target(name)))
+    if name == "lane_tick":
+        vp = ctypes.c_void_p
+        lib.lane_tick_launch.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(vp),
+            ctypes.POINTER(vp), ctypes.POINTER(vp), vp]
+        lib.lane_tick_launch.restype = ctypes.c_int
+        lib.lane_tick_error_string.argtypes = [ctypes.c_int]
+        lib.lane_tick_error_string.restype = ctypes.c_char_p
+    _LOADED[name] = lib
+    return lib

@@ -27,3 +27,8 @@ hypothesis.settings.register_profile(
     suppress_health_check=[hypothesis.HealthCheck.too_slow,
                            hypothesis.HealthCheck.data_too_large])
 hypothesis.settings.load_profile("repro")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (CUDA); skips where there is none")

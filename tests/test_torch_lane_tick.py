@@ -1,0 +1,98 @@
+"""The port's lane-tick wrapper against the JAX package's megakernel.
+
+On the CPU the wrapper runs its plain version (the ported pass chain over
+[L, ...] lanes); it must reproduce, bit for bit, what
+``repro.kernels.lane_tick.fused_tick_mid`` returns under
+``pallas_interpret`` — including the fused output form (small_*/large_*
+alias pend_*, stats0 is the input stats).  The CUDA kernel itself is
+held against that plain version on the card by
+tests/test_torch_cuda_kernel.py.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import pqueue as jpq
+from repro.kernels import lane_tick as jlt
+from repro.kernels import ops as jops
+from repro_torch.core import PQConfig as TorchConfig
+from repro_torch.core import pqueue as tpq
+from repro_torch.kernels import lane_tick as tlt
+from test_lane_megakernel import BASE, _repair_stream
+
+JNP = jops.resolve_backend("jnp")
+INTERP = jops.resolve_backend("pallas_interpret")
+TICKS = 26   # two repair cycles: both drain sizes, chop, rebalance
+
+
+def _port_cfg(cfg, backend):
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+          if f.name != "backend"}
+    return TorchConfig(backend=backend, **kw)
+
+
+def _port_lanes(j_states):
+    """[L, ...]-stacked port PQState from reference states (numpy copies)."""
+    leaves = [[torch.from_numpy(np.array(x)) for x in jax.tree.leaves(s)]
+              for s in j_states]
+    stacked = [torch.stack(xs) for xs in zip(*leaves)]
+    n = len(tpq.PQState._fields) - 1
+    return tpq.PQState(*stacked[:n], stats=tpq.PQStats(*stacked[n:]))
+
+
+def _assert_mid_equal(got, want, what):
+    got_leaves = tpq.tree_leaves(got)
+    want_leaves = jax.tree.leaves(want)
+    assert len(got_leaves) == len(want_leaves)
+    for i, (g, w) in enumerate(zip(got_leaves, want_leaves)):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype, (what, i, g.dtype, w.dtype)
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{what} [{i}]")
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_plain_fused_tick_mid_matches_reference(lanes):
+    cfg_j = dataclasses.replace(BASE, backend=JNP)
+    cfg_i = dataclasses.replace(BASE, backend=INTERP)
+    cfg_t = _port_cfg(BASE, "cuda")
+    ref_fused = jax.jit(functools.partial(jlt.fused_tick_mid, cfg_i))
+    streams = [list(_repair_stream(np.random.default_rng(21 + i), TICKS))
+               for i in range(lanes)]
+    states = [jpq.init(cfg_j) for _ in range(lanes)]
+    fired = np.zeros(5, np.int64)
+    launches = tlt.fused_tick_mid.launches
+    for t in range(TICKS):
+        batches = [s[t] for s in streams]
+        lk, lv, lm, grants = (jnp.stack(xs) for xs in zip(*batches))
+        want = ref_fused(jax.tree.map(lambda *xs: jnp.stack(xs), *states),
+                         lk, lv, lm, grants)
+        got = tlt.fused_tick_mid(
+            cfg_t, _port_lanes(states),
+            *(torch.from_numpy(np.array(x)) for x in (lk, lv, lm, grants)))
+        _assert_mid_equal(got, want, f"L={lanes} tick {t}")
+        p = got.pending
+        fired += [int(x.any()) for x in (p.need_combine, p.need_scatter,
+                                         p.need_rebal, p.need_move,
+                                         p.need_chop)]
+        states = [jpq.tick(cfg_j, s, *b)[0]
+                  for s, b in zip(states, batches)]
+    assert (fired > 0).all(), fired.tolist()
+    # CPU tensors take the plain version: no kernel launched
+    assert tlt.fused_tick_mid.launches == launches
+
+
+def test_wrapper_rejects_other_devices():
+    cfg = _port_cfg(BASE, "cuda")
+    lanes = tpq.tree_map(lambda x: x[None].to("meta"), tpq.init(cfg, "cpu"))
+    batch = [torch.zeros((1, cfg.a_max), device="meta"),
+             torch.zeros((1, cfg.a_max), dtype=torch.int32, device="meta"),
+             torch.zeros((1, cfg.a_max), dtype=torch.bool, device="meta"),
+             torch.zeros((1,), dtype=torch.int32, device="meta")]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tlt.fused_tick_mid(cfg, lanes, *batch)
