@@ -19,9 +19,18 @@ Phases, each fatal on failure:
    served keys equal to the heapq oracle's, nothing dropped, all five
    passes fired, one kernel call per tick;
 5. main path at PRODUCTION — filled to 262,144 residents, then 100 mixed
-   ticks of uniform keys; the same checks, moveHead fired.
+   ticks of uniform keys; the same checks, moveHead fired.  After it, the
+   K1, K2 and K4 launch counts are still 0: no engine path runs them, as
+   in the reference;
+6. the kernel-ops path — ``sort_kvf`` (K2), ``merge_sorted`` (K1),
+   ``select_threshold`` (K4), ``select_k_smallest`` and
+   ``extract_k_bucketed`` (K4 then K2) under the "cuda" backend, at the
+   shapes of the w4096 and PRODUCTION cells on data from the states
+   phases 4-5 leave, each held bit for bit against the same op under the
+   "torch" backend and timed on the device clock beside it and one
+   PyTorch library call.
 
-The last two lines are a JSON record of the kernel and the run's status
+The last lines are a JSON record of the kernels and the run's status
 line.  Imports nothing of JAX or of the JAX package.
 """
 
@@ -75,6 +84,36 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int):
+    """Mean device milliseconds per call of ``fn``: the timed calls queue
+    behind a device-side sleep long enough for the host to enqueue them
+    all, so the CUDA events bracket the device's work back to back and
+    the host's launch cost stays out.  A call of many small launches can
+    fill the device's launch queue and block the host, so fewer calls are
+    queued on a retry.  Returns (ms, True); if even one call could not be
+    queued ahead (it waits for the device), its events' time and False."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(4 * (time.perf_counter() - t0) * 2e9) + 1_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for n in (reps, max(1, reps // 4), 1):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        ahead = not start.query()      # the sleep still runs: all queued
+        torch.cuda.synchronize()
+        if ahead:
+            break
+    return start.elapsed_time(end) / n, ahead
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +419,7 @@ def main_path_w4096(args, factory, pq, lt, RefPQ):
     warm_states = states
     states, f, n = drive("w4096 mix", engines, states, mix_rows, ref, pq)
     fired, ticks = fired + f, ticks + n
+    mix_states = states
     states, f, n = drive("w4096 quiet", engines, states, quiet_rows, ref, pq,
                          stop=lambda fr: fr[4] > 0)
     fired, ticks = fired + f, ticks + n
@@ -393,7 +433,8 @@ def main_path_w4096(args, factory, pq, lt, RefPQ):
     if not (fired > 0).all():
         fail(f"w4096: not every pass fired: {fired.tolist()}")
     timings("w4096_p50_des", engines, warm_states, mix_rows, 50, pq, lt)
-    return launches
+    return dict(launches=launches, cfg=engines[0].cfg, state=mix_states[0],
+                rows=mix_rows)
 
 
 def main_path_production(args, factory, pq, lt, RefPQ, config):
@@ -425,7 +466,231 @@ def main_path_production(args, factory, pq, lt, RefPQ, config):
     if f2[3] == 0:
         fail("PRODUCTION: moveHead never fired")
     timings("production_p50_uniform", engines, filled, mix_rows, 30, pq, lt)
-    return launches
+    return dict(launches=launches, cfg=engines[0].cfg, state=states[0],
+                rows=mix_rows)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the kernel-ops path (K1, K2, K4 and their compositions)
+# ---------------------------------------------------------------------------
+
+class OpCase:
+    """One op at one shape: its "cuda" and "torch" calls, a library call
+    that computes the same function (timed only), the bytes it must move,
+    and how its outputs compare (default: every output bit for bit)."""
+
+    def __init__(self, kernel, label, cuda, plain, library, nbytes,
+                 canon=None, also=None, timed=True):
+        self.kernel, self.label = kernel, label
+        self.cuda, self.plain, self.library = cuda, plain, library
+        self.nbytes, self.canon, self.also = nbytes, canon, also
+        self.timed = timed
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def key_mixes(keys, gen):
+    """Variants of real keys for the sort: duplicates, more INF padding,
+    negative keys, and both zeros (INF padding stays INF)."""
+    fin = torch.isfinite(keys)
+    coin = torch.rand(keys.shape, generator=gen, device=keys.device)
+    zeros = torch.where(coin < 0.5, 0.0, -0.0)
+    return {"uniform": keys,
+            "duplicates": torch.where(fin, torch.floor(keys / 997.0) * 997.0,
+                                      keys),
+            "inf_padding": torch.where(coin < 0.3, float("inf"), keys),
+            "negative": torch.where(fin, -keys, keys),
+            "signed_zeros": torch.where(fin & (coin < 0.4), zeros, keys)}
+
+
+def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
+    """The op calls of phase 6 on data from the states phases 4-5 leave:
+    the stores, sequential parts and add batches of w4096 and PRODUCTION."""
+    cuda, plain = ops.resolve_backend("cuda"), ops.resolve_backend("torch")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 6)
+    inf = float("inf")
+
+    def store(cell):
+        s = cell["state"]
+        live = torch.arange(s.buckets.shape[-1], device="cuda") \
+            < s.bcounts[:, None]
+        return (torch.where(live, s.buckets, inf),
+                torch.where(live, s.bvals, -1), s.bcounts, s.splitters)
+
+    def sorted_batch(cell, t):
+        ak, av, mask, _ = cell["rows"]
+        k = torch.where(mask[t], ak[t], inf)
+        order = torch.sort(k, stable=True).indices
+        return k[order][None], av[t][order][None]
+
+    def flags_like(v):
+        return torch.randint(0, 2, v.shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    cases = []
+
+    # K2: sort_kvf
+    wk_add, wv_add = (x[:1].clone() for x in w4096["rows"][:2])
+    pk, pv, pc, psp = store(prod)
+    sort_shapes = {
+        "w4096 add batch [1, 4096]": (wk_add, wv_add),
+        "PRODUCTION bucket rows [1024, 1024]": (pk, pv),
+        "sharded L=8 lane batch [8, 512]": (wk_add.reshape(8, 512),
+                                            wv_add.reshape(8, 512)),
+        "PRODUCTION k_max row [1, 65536]": (pk.reshape(1, -1)[:, :65536],
+                                            pv.reshape(1, -1)[:, :65536]),
+    }
+    for shape, (k0, v) in sort_shapes.items():
+        v = v.contiguous()
+        f = flags_like(v)
+        for mix, k in key_mixes(k0.contiguous(), gen).items():
+            cases.append(OpCase(
+                "K2", f"sort_kvf {shape} {mix}",
+                lambda k=k, v=v, f=f: ops.sort_kvf(k, v, f, backend=cuda),
+                lambda k=k, v=v, f=f: ops.sort_kvf(k, v, f, backend=plain),
+                lambda k=k: torch.sort(k, dim=-1, stable=True),
+                2 * nbytes(k, v, f), timed=mix == "uniform"))
+
+    # K1: merge_sorted
+    sk_p, sv_p = sorted_batch(prod, 0)
+    sk_w, sv_w = sorted_batch(w4096, 0)
+    sp, sw = prod["state"], w4096["state"]
+    fk, fv = pq.flatten_parallel(prod["cfg"], pq._par_of(sp))
+    merges = {
+        "PRODUCTION combine 131072+1024": (sp.seq_keys[None],
+                                           sp.seq_vals[None], sk_p, sv_p),
+        "w4096 combine 16384+4096": (sw.seq_keys[None], sw.seq_vals[None],
+                                     sk_w, sv_w),
+        "PRODUCTION rebalance 1048576+1024": (fk[None], fv[None], sk_p, sv_p),
+        "sharded L=8 lanes [8, 1026]+[8, 512]": (
+            sw.seq_keys[:8 * 1026].reshape(8, 1026),
+            sw.seq_vals[:8 * 1026].reshape(8, 1026),
+            sk_w.reshape(8, 512), sv_w.reshape(8, 512)),
+    }
+    for shape, (ak, av, bk, bv) in merges.items():
+        ak, av, bk, bv = (x.contiguous() for x in (ak, av, bk, bv))
+        af, bf = torch.zeros_like(av), torch.ones_like(bv)
+        a, b = (ak, av, af), (bk, bv, bf)
+        cases.append(OpCase(
+            "K1", f"merge_sorted {shape}",
+            lambda a=a, b=b: ops.merge_sorted(*a, *b, backend=cuda),
+            lambda a=a, b=b: ops.merge_sorted(*a, *b, backend=plain),
+            lambda a=a, b=b: torch.sort(torch.cat([a[0], b[0]], -1), dim=-1,
+                                        stable=True),
+            2 * nbytes(*a, *b)))
+
+    # K4: select_threshold on the PRODUCTION store, flattened
+    flat_k, flat_v = pk.reshape(1, -1), pv.reshape(1, -1)
+    n_fin = int(torch.isfinite(flat_k).sum())
+    for k in (0, 1, 1024, 65536, n_fin, n_fin + 1):
+        kt = torch.full((1,), k, dtype=torch.int32, device="cuda")
+        cases.append(OpCase(
+            "K4", f"select_threshold PRODUCTION store 1048576 keys k={k}",
+            lambda kt=kt: ops.select_threshold(flat_k, kt, backend=cuda),
+            lambda kt=kt: ops.select_threshold(flat_k, kt, backend=plain),
+            (lambda k=k: torch.kthvalue(flat_k, k, dim=-1)) if k else None,
+            nbytes(flat_k, kt) + 8,
+            also=lambda kt=kt: radix_select.radix_select_threshold_plain(
+                flat_k, kt)))
+
+    # K4 then K2: the compositions
+    k_max = prod["cfg"].move_k_max
+    cases.append(OpCase(
+        "K4+K2", f"select_k_smallest PRODUCTION store k={k_max} "
+        f"k_max={k_max}",
+        lambda: ops.select_k_smallest(flat_k, flat_v, k_max, k_max,
+                                      backend=cuda),
+        lambda: ops.select_k_smallest(flat_k, flat_v, k_max, k_max,
+                                      backend=plain),
+        lambda: torch.topk(flat_k, k_max, dim=-1, largest=False,
+                           sorted=True),
+        nbytes(flat_k, flat_v) + 8 * k_max))
+    wk, wv, wc, wsp = store(w4096)
+    for cell, (sk, sv, sc, spl), km, ks in (
+            ("PRODUCTION", (pk, pv, pc, psp), k_max, (1024, 65536)),
+            ("w4096", (wk, wv, wc, wsp), w4096["cfg"].move_k_max,
+             (1024, 8192))):
+        for k in ks:
+            cases.append(OpCase(
+                "K4+K2", f"extract_k_bucketed {cell} store "
+                f"{tuple(sk.shape)} k={k} k_max={km}",
+                lambda a=(sk, sv, sc, k, km, spl): ops.extract_k_bucketed(
+                    *a[:5], splitters=a[5], backend=cuda),
+                lambda a=(sk, sv, sc, k, km, spl): ops.extract_k_bucketed(
+                    *a[:5], splitters=a[5], backend=plain),
+                None, 2 * nbytes(sk, sv, sc) + nbytes(spl) + 8 * km,
+                canon=canon_extract))
+    return cases
+
+
+def canon_extract(out, bitonic):
+    """The survivors' slot layout differs by design (the kernel branch
+    keeps slot order, the plain branch leaves sorted runs): a stable row
+    sort of the survivors gives the plain branch's layout bit for bit."""
+    out_k, out_v, new_k, new_v, new_counts = out
+    rk, rv, _ = bitonic.bitonic_sort_kvf_plain(new_k, new_v,
+                                               torch.zeros_like(new_v))
+    return out_k, out_v, rk, rv, new_counts
+
+
+def kernel_ops_path(args, w4096, prod, ops, pq, wrappers, bitonic,
+                    radix_select):
+    """Phase 6.  Every case's "cuda" call runs once with the launch counts
+    set to 0 (the path run); then each is held against its "torch" call
+    (and K4 also against its plain version) bit for bit and timed.
+    Returns ({label: record}, {kernel: launches in the path run})."""
+    cases = kernel_ops_cases(args, w4096, prod, ops, pq, radix_select)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    got, launched = [], []
+    for case in cases:
+        before = {k: w.launches for k, w in wrappers.items()}
+        got.append(case.cuda())
+        launched.append({k: w.launches - before[k]
+                         for k, w in wrappers.items()
+                         if w.launches > before[k]})
+    torch.cuda.synchronize()
+    totals = {k: w.launches for k, w in wrappers.items()}
+    print(f"kernel-ops path: {len(cases)} op calls, launches {totals}",
+          flush=True)
+    records = {}
+    for case, out, launches in zip(cases, got, launched):
+        want = case.plain()
+        if case.canon is not None:
+            out = case.canon(out, bitonic)
+        torch.cuda.synchronize()
+        err = 0.0
+        refs = [("torch backend", want)]
+        if case.also is not None:
+            refs.append(("plain version", case.also()))
+        for what, ref in refs:
+            for i, (g, w) in enumerate(zip(out, ref)):
+                if not same_bits(g, w):
+                    fail(f"{case.label}: cuda != {what}, output {i}: "
+                         f"max |diff| {max_abs_err(g, w)}")
+                err = max(err, max_abs_err(g, w))
+        rec = dict(kernel=case.kernel, op=case.label, launches=launches,
+                   max_abs_err=err,
+                   bound_ms=case.nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        # device time per call; the host-clocked call time beside it
+        for key, fn, reps in (("ms", case.cuda, 20),
+                              ("plain_ms", case.plain, 10),
+                              ("library_ms", case.library, 20)):
+            fn = fn if case.timed else None
+            rec[key], rec[key + "_device_only"] = (
+                device_ms(fn, reps) if fn else (None, None))
+            rec[key.replace("ms", "call_ms")] = (cuda_ms(fn, reps) if fn
+                                                 else None)
+        print(f"kernel_ops {json.dumps(rec)}", flush=True)
+        records[case.label] = rec
+    for name, w in wrappers.items():
+        if totals[name] == 0:
+            fail(f"the kernel-ops path never launched {name}")
+    return records, totals
 
 
 def main() -> None:
@@ -441,8 +706,13 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import config, factory, pqueue as pq
     from repro_torch.core.ref_pq import RefPQ
-    from repro_torch.kernels import build
+    from repro_torch.kernels import bitonic, build, merge_consume
     from repro_torch.kernels import lane_tick as lt
+    from repro_torch.kernels import ops, radix_select
+    wrappers = {"bitonic_sort_kvf": bitonic.bitonic_sort_kvf,
+                "merge_sorted_kvf": merge_consume.merge_sorted_kvf,
+                "radix_select_threshold":
+                    radix_select.radix_select_threshold}
 
     t_start = time.perf_counter()
     # 1. device
@@ -474,7 +744,7 @@ def main() -> None:
         factory.EngineSpec(engine="pqe", width=4096, backend="torch"))
     prod = factory.resolved_base(factory.EngineSpec(
         engine="pqe", width=1024, base=config.PRODUCTION, backend="torch"))
-    records = {}
+    records_k3 = {}
 
     def repair_streams(lanes):
         return [to_device(batch_rows(64, *repair_stream(
@@ -495,29 +765,58 @@ def main() -> None:
     for lanes in (1, 4):
         kernel_vs_plain(f"repair_L{lanes}", repair_cfg,
                         repair_streams(lanes), 0, lt, pq)
-    records["w4096"] = kernel_vs_plain(
+    records_k3["w4096"] = kernel_vs_plain(
         "w4096_L1", w4096, mix_streams(1, 4096, 1, 12, "des"), 1, lt, pq)
     kernel_vs_plain("w4096_L8", w4096, mix_streams(8, 4096, 1, 6, "des"),
                     1, lt, pq)
-    records["production"] = kernel_vs_plain(
+    records_k3["production"] = kernel_vs_plain(
         "production_L1", prod, mix_streams(1, 1024, 16, 6, "uniform"),
         16, lt, pq)
 
     # 4-5. the main path through the engine API
-    launches_w = main_path_w4096(args, factory, pq, lt, RefPQ)
-    launches_p = main_path_production(args, factory, pq, lt, RefPQ, config)
+    w4096_run = main_path_w4096(args, factory, pq, lt, RefPQ)
+    prod_run = main_path_production(args, factory, pq, lt, RefPQ, config)
+    engine_k124 = {k: w.launches for k, w in wrappers.items()}
+    print(f"K1/K2/K4 launches after phases 3-5: {engine_k124}", flush=True)
+    if any(engine_k124.values()):
+        fail(f"an engine path launched K1, K2 or K4: {engine_k124}")
+
+    # 6. the kernel-ops path
+    t6 = time.perf_counter()
+    records, ops_launches = kernel_ops_path(args, w4096_run, prod_run, ops,
+                                            pq, wrappers, bitonic,
+                                            radix_select)
+    print(f"kernel-ops path: {time.perf_counter() - t6:.1f} s", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
-    for cell, launches in (("w4096", launches_w), ("production", launches_p)):
-        r = records[cell]
+    for cell, run in (("w4096", w4096_run), ("production", prod_run)):
+        r = records_k3[cell]
         kernels.append(dict(
             name=f"lane_tick[{cell}]", route="cuda",
             source="src/repro_torch/kernels/csrc/lane_tick.cu",
             replaces="src/repro/kernels/lane_tick.py:185",
-            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            launches=run["launches"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes", library_ms=None))
+    for kname, wrapper, src, replaces, label in (
+            ("K1", "merge_sorted_kvf", "merge_consume.cu",
+             "src/repro/kernels/merge_consume.py:119",
+             "merge_sorted PRODUCTION combine 131072+1024"),
+            ("K2", "bitonic_sort_kvf", "bitonic.cu",
+             "src/repro/kernels/bitonic.py:89",
+             "sort_kvf PRODUCTION bucket rows [1024, 1024] uniform"),
+            ("K4", "radix_select_threshold", "radix_select.cu",
+             "src/repro/kernels/radix_select.py:93",
+             "select_threshold PRODUCTION store 1048576 keys k=65536")):
+        err = max(r["max_abs_err"] for r in records.values()
+                  if kname in r["kernel"])
+        kernels.append(dict(
+            name=f"{wrapper}[{label.split(' ', 1)[1]}]", route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
+            launches=ops_launches[wrapper], max_abs_err=err,
+            **{k: records[label][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -351,7 +351,8 @@ def _tick_head(cfg: PQConfig, state: PQState, add_keys, add_vals,
     ak = torch.where(add_mask, add_keys.to(_F32), INF)
     av = torch.where(add_mask, add_vals.to(_I32), EMPTY_VAL)
     if not adds_sorted:
-        ak, av, _ = kops.sort_kvf(ak, av, torch.zeros_like(av))
+        ak, av, _ = kops.sort_kvf(ak, av, torch.zeros_like(av),
+                                  backend=kops.TORCH)
     n_adds = add_mask.sum(-1, dtype=_I32)
     a_valid = arange_i32(A, ak) < n_adds[..., None]
 
@@ -416,7 +417,7 @@ def _pass_combine(cfg: PQConfig, mid: TickMid) -> TickMid:
     mk, mv, mf = kops.merge_sorted(
         mid.nsk, mid.nsv, torch.zeros(mid.nsk.shape, dtype=_I32,
                                       device=like.device),
-        p.small_k, p.small_v, small_flag)
+        p.small_k, p.small_v, small_flag, backend=kops.TORCH)
 
     n_small = small_flag.sum(-1, dtype=_I32)
     r1 = mid.rm_count - mid.n_imm
@@ -548,7 +549,8 @@ def _repair_move(cfg: PQConfig, mid: TickMid) -> TickMid:
     # the fresh head must fit the sequential part with next-tick slack
     k_extract = torch.minimum(k_extract, served + cfg.spill_threshold)
     sel_k, sel_v, nbk, nbv, nbc = kops.extract_k_bucketed(
-        par.buckets, par.bvals, par.bcounts, k_extract, K)
+        par.buckets, par.bvals, par.bcounts, k_extract, K,
+        backend=kops.TORCH)
 
     lead = sel_k.shape[:-1]
     ridx = _lead_arange(R, sel_k, lead)

@@ -70,20 +70,46 @@ def build_all(names=None) -> None:
         BUILD_LOG[name] = (time.perf_counter() - t0, log)
 
 
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+
+#: per library: its C functions as (argument types, return type); every
+#: device pointer and the stream are c_void_p, every size a long long
+SIGNATURES = {
+    "lane_tick": {
+        "lane_tick_launch": ([ctypes.POINTER(_LL), ctypes.POINTER(_VP),
+                              ctypes.POINTER(_VP), ctypes.POINTER(_VP), _VP],
+                             ctypes.c_int),
+        "lane_tick_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "bitonic": {
+        "bitonic_launch": ([_VP] * 7 + [_LL, _LL, _VP], ctypes.c_int),
+        "bitonic_ws_ints": ([_LL, _LL], _LL),
+        "bitonic_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "merge_consume": {
+        "merge_consume_launch": ([_VP] * 9 + [_LL, _LL, _LL, _VP],
+                                 ctypes.c_int),
+        "merge_consume_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "radix_select": {
+        "radix_select_launch": ([_VP] * 5 + [_LL, _LL, _VP], ctypes.c_int),
+        "radix_select_ws_ints": ([], _LL),
+        "radix_select_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+}
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed, with
+    its C signatures from :data:`SIGNATURES` set."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
     build_all([name])
     lib = ctypes.CDLL(str(_target(name)))
-    if name == "lane_tick":
-        vp = ctypes.c_void_p
-        lib.lane_tick_launch.argtypes = [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(vp),
-            ctypes.POINTER(vp), ctypes.POINTER(vp), vp]
-        lib.lane_tick_launch.restype = ctypes.c_int
-        lib.lane_tick_error_string.argtypes = [ctypes.c_int]
-        lib.lane_tick_error_string.restype = ctypes.c_char_p
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     _LOADED[name] = lib
     return lib

@@ -49,7 +49,8 @@ def _presort(lk, lv, lm):
     kernel: the kernel then runs the adds_sorted head on the same bits."""
     sk = torch.where(lm, lk.to(_F32), INF)
     sv = torch.where(lm, lv.to(_I32), EMPTY_VAL)
-    ak, av, _ = kops.sort_kvf(sk, sv, torch.zeros_like(sv))
+    ak, av, _ = kops.sort_kvf(sk, sv, torch.zeros_like(sv),
+                              backend=kops.TORCH)
     am = (kops.arange_i32(lk.shape[-1], lk)
           < lm.sum(-1, dtype=_I32)[..., None])
     return ak, av, am

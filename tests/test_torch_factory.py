@@ -151,7 +151,9 @@ def test_state_round_trip_through_numpy():
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.kernels, repro_torch.kernels.lane_tick, "
-            "repro_torch.kernels.build\n"
+            "repro_torch.kernels.build, repro_torch.kernels.bitonic, "
+            "repro_torch.kernels.merge_consume, "
+            "repro_torch.kernels.radix_select, repro_torch.kernels.ref\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

@@ -1,4 +1,5 @@
-"""The port's plain primitives against the JAX package's jnp branches.
+"""The port's plain primitives ("torch" backend) against the JAX
+package's jnp branches.
 
 Each case of tests/test_kernels.py that pins a jnp-branch primitive runs
 here through both packages on the same numpy inputs; results must be
@@ -15,6 +16,7 @@ from repro.kernels.radix_select import _to_sortable_u32 as j_u32
 from repro_torch.kernels import ops as tops
 
 JNP = jops.resolve_backend("jnp")
+TORCH = tops.resolve_backend("torch")
 
 
 def _eq(got, want, msg=""):
@@ -80,7 +82,7 @@ def test_sort_kvf_matches_reference():
         np.float32)
     vals = rng.integers(-5, 1 << 30, (3, 40)).astype(np.int32)
     flags = rng.integers(0, 2, (3, 40)).astype(np.int32)
-    got = tops.sort_kvf(_t(keys), _t(vals), _t(flags))
+    got = tops.sort_kvf(_t(keys), _t(vals), _t(flags), backend=TORCH)
     want = jops.sort_kvf(jnp.asarray(keys), jnp.asarray(vals),
                          jnp.asarray(flags), backend=JNP)
     for g, w in zip(got, want):
@@ -101,7 +103,8 @@ def test_merge_sorted_matches_reference(lead):
     bv = rng.integers(-100, 0, lead + (m,)).astype(np.int32)
     af = np.zeros(lead + (n,), np.int32)
     bf = np.ones(lead + (m,), np.int32)
-    got = tops.merge_sorted(*(_t(x) for x in (ak, av, af, bk, bv, bf)))
+    got = tops.merge_sorted(*(_t(x) for x in (ak, av, af, bk, bv, bf)),
+                            backend=TORCH)
     want = jops.merge_sorted(*(jnp.asarray(x)
                                for x in (ak, av, af, bk, bv, bf)),
                              backend=JNP)
@@ -161,7 +164,7 @@ def test_extract_k_bucketed_matches_reference():
     total = int(counts.sum())
     for k in (0, 1, total // 2, min(total, k_max), total + 5):
         got = tops.extract_k_bucketed(_t(keys), _t(vals), _t(counts), k,
-                                      k_max)
+                                      k_max, backend=TORCH)
         want = jops.extract_k_bucketed(
             jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(counts), k,
             k_max, splitters=jnp.asarray(splitters), backend=JNP)
@@ -176,7 +179,7 @@ def test_extract_k_bucketed_lane_major_matches_reference():
     keys, vals, counts, _ = (np.stack(x) for x in zip(*stores))
     k = np.array([0, 5, 40], np.int32)
     got = tops.extract_k_bucketed(_t(keys), _t(vals), _t(counts), _t(k),
-                                  k_max)
+                                  k_max, backend=TORCH)
     want = jops.extract_k_bucketed(jnp.asarray(keys), jnp.asarray(vals),
                                    jnp.asarray(counts), jnp.asarray(k),
                                    k_max, backend=JNP)
