@@ -10,8 +10,10 @@ Phases, each fatal on failure:
    build/ (one nvcc per source, all at once);
 3. kernel vs plain version — the lane-tick kernel against its plain
    PyTorch version on the card, bit for bit, on states driven through
-   real ticks, at five geometry/lane settings; both timed with CUDA
-   events;
+   real ticks, at nine geometry/lane settings (the repair-forcing
+   geometry also at a head tile width of 64 slots, so merge windows
+   cross tile edges, and on a stream whose keys tie); both timed on the
+   device clock, with the host-clocked call time beside it;
 4. main path at w4096 — ``make_engine(EngineSpec(engine="pqe",
    width=4096))`` (the "cuda" kernel backend) beside a "torch" twin: warm
    2000 keys, 200 ticks at p_add 0.5 with DES keys, quiet ticks until
@@ -26,9 +28,10 @@ Phases, each fatal on failure:
    ``select_threshold`` (K4), ``select_k_smallest`` and
    ``extract_k_bucketed`` (K4 then K2) under the "cuda" backend, at the
    shapes of the w4096 and PRODUCTION cells on data from the states
-   phases 4-5 leave, each held bit for bit against the same op under the
-   "torch" backend and timed on the device clock beside it and one
-   PyTorch library call.
+   phases 4-5 leave, and K2 also at row lengths around its one-CTA limit
+   (1 to 100000 keys), each held bit for bit against the same op under
+   the "torch" backend and timed on the device clock beside it and one
+   PyTorch library call (for K2, ``torch.sort``, listed beside it).
 
 The last lines are a JSON record of the kernels and the run's status
 line.  Imports nothing of JAX or of the JAX package.
@@ -148,10 +151,16 @@ def mix_keys(rng, width, p_add, ticks, key_dist, lo=0.0):
     return keys, [n_rm] * ticks, lo
 
 
-def repair_stream(rng, width, ticks):
+#: keys of the duplicate-heavy stream: adds tie with the sequential part
+TIE_POOL = np.array([0.0, -0.0, 1.0, 2.0, 3.0, 5.0, 8.0, 13.0, 21.0, 34.0],
+                    np.float32)
+
+
+def repair_stream(rng, width, ticks, ties=False):
     """Phased traffic that fires every pass at a tiny store: adds pile up
     (scatter, rebalance), then a big or a tiny drain (moveHead), then
-    quiet ticks (chopHead)."""
+    quiet ticks (chopHead).  With ``ties`` the keys come from a few
+    values."""
     keys, rms = [], []
     for t in range(ticks):
         cycle, phase = t // 12, t % 12
@@ -160,7 +169,8 @@ def repair_stream(rng, width, ticks):
             n_add = int(rng.integers(width // 2, width + 1))
         elif phase == 4:
             n_rm = width if cycle % 2 else int(rng.integers(1, 5))
-        keys.append(np.round(rng.uniform(0, 1000, n_add), 3)
+        keys.append(rng.choice(TIE_POOL, n_add) if ties else
+                    np.round(rng.uniform(0, 1000, n_add), 3)
                     .astype(np.float32))
         rms.append(n_rm)
     return keys, rms
@@ -181,10 +191,12 @@ def stack_lanes(pq, states):
     return pq.PQState(*stacked[:n], stats=pq.PQStats(*stacked[n:]))
 
 
-def kernel_vs_plain(name, cfg, streams, check_from, lt, pq):
+def kernel_vs_plain(name, cfg, streams, check_from, lt, pq, head_tile=None):
     """Drive every lane through its stream with the plain tick; from tick
     ``check_from`` on, hold the kernel against its plain version on the
-    stacked lanes.  Returns a record with the last input's timings."""
+    stacked lanes, at the head tile width ``head_tile`` (default: the
+    wrapper's).  Returns a record with the last input's timings."""
+    head_tile = head_tile or lt.HEAD_TILE
     lanes = len(streams)
     states = [pq.init(cfg, "cuda") for _ in streams]
     ticks = streams[0][0].shape[0]
@@ -195,7 +207,7 @@ def kernel_vs_plain(name, cfg, streams, check_from, lt, pq):
             stacked = stack_lanes(pq, states)
             inputs = lt.kernel_inputs(cfg, stacked, *batch)
             outs, ws = lt.kernel_buffers(cfg, lanes, batch[0].device)
-            lt.launch(cfg, inputs, outs, ws)
+            lt.launch(cfg, inputs, outs, ws, head_tile=head_tile)
             got = lt.mid_from_outputs(outs, stacked.stats)
             want = lt.fused_tick_mid_plain(cfg, stacked, *batch)
             torch.cuda.synchronize()
@@ -212,13 +224,23 @@ def kernel_vs_plain(name, cfg, streams, check_from, lt, pq):
             checked += 1
         states = [pq.tick(cfg, s, *(b[i] for b in batch))[0]
                   for i, s in enumerate(states)]
-    # timings on the last checked input
-    ms = cuda_ms(lambda: lt.launch(cfg, inputs, outs, ws), 20)
-    plain_ms = cuda_ms(lambda: lt.fused_tick_mid_plain(cfg, stacked, *batch), 5)
+    # timings on the last checked input: device time per call (the host's
+    # launch cost out), and the host-clocked call time beside it
+    def kernel():
+        lt.launch(cfg, inputs, outs, ws, head_tile=head_tile)
+
+    def plain():
+        lt.fused_tick_mid_plain(cfg, stacked, *batch)
+
+    ms, ms_device_only = device_ms(kernel, 20)
+    plain_ms, plain_device_only = device_ms(plain, 5)
     moved = sum(x.numel() * x.element_size() for x in inputs + outs)
-    rec = dict(setting=name, lanes=lanes, checked_ticks=checked,
+    rec = dict(setting=name, lanes=lanes, head_tile=head_tile,
+               checked_ticks=checked,
                fired=fired.tolist(), max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bytes=moved,
+               ms_device_only=ms_device_only, call_ms=cuda_ms(kernel, 20),
+               plain_ms=plain_ms, plain_ms_device_only=plain_device_only,
+               plain_call_ms=cuda_ms(plain, 5), bytes=moved,
                bound_ms=moved / HBM_BYTES_PER_S * 1e3)
     print(f"kernel_vs_plain {json.dumps(rec)}", flush=True)
     return rec
@@ -502,7 +524,8 @@ def key_mixes(keys, gen):
                                       keys),
             "inf_padding": torch.where(coin < 0.3, float("inf"), keys),
             "negative": torch.where(fin, -keys, keys),
-            "signed_zeros": torch.where(fin & (coin < 0.4), zeros, keys)}
+            "signed_zeros": torch.where(fin & (coin < 0.4), zeros, keys),
+            "all_equal": torch.full_like(keys, 7.0)}
 
 
 def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
@@ -542,6 +565,10 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
         "PRODUCTION k_max row [1, 65536]": (pk.reshape(1, -1)[:, :65536],
                                             pv.reshape(1, -1)[:, :65536]),
     }
+    # row lengths around the one-CTA limit (4096 keys) and past it
+    for n in (1, 31, 32, 4095, 4097, 65537, 100000):
+        sort_shapes[f"PRODUCTION store row [1, {n}]"] = (
+            pk.reshape(1, -1)[:, :n], pv.reshape(1, -1)[:, :n])
     for shape, (k0, v) in sort_shapes.items():
         v = v.contiguous()
         f = flags_like(v)
@@ -746,9 +773,9 @@ def main() -> None:
         engine="pqe", width=1024, base=config.PRODUCTION, backend="torch"))
     records_k3 = {}
 
-    def repair_streams(lanes):
+    def repair_streams(lanes, ties=False):
         return [to_device(batch_rows(64, *repair_stream(
-            np.random.default_rng(args.seed + 100 + i), 64, 26)))
+            np.random.default_rng(args.seed + 100 + i), 64, 26, ties)))
             for i in range(lanes)]
 
     def mix_streams(lanes, width, warm_ticks, ticks, dist):
@@ -765,6 +792,12 @@ def main() -> None:
     for lanes in (1, 4):
         kernel_vs_plain(f"repair_L{lanes}", repair_cfg,
                         repair_streams(lanes), 0, lt, pq)
+        kernel_vs_plain(f"repair_L{lanes}_tile64", repair_cfg,
+                        repair_streams(lanes), 0, lt, pq, head_tile=64)
+    for lanes in (1, 3):
+        kernel_vs_plain(f"duplicates_L{lanes}_tile64", repair_cfg,
+                        repair_streams(lanes, ties=True), 0, lt, pq,
+                        head_tile=64)
     records_k3["w4096"] = kernel_vs_plain(
         "w4096_L1", w4096, mix_streams(1, 4096, 1, 12, "des"), 1, lt, pq)
     kernel_vs_plain("w4096_L8", w4096, mix_streams(8, 4096, 1, 6, "des"),
@@ -787,6 +820,12 @@ def main() -> None:
                                             pq, wrappers, bitonic,
                                             radix_select)
     print(f"kernel-ops path: {time.perf_counter() - t6:.1f} s", flush=True)
+    k2_vs_sort = {r["op"].split(" ", 1)[1]: dict(
+        ms=r["ms"], torch_sort_ms=r["library_ms"],
+        ratio=r["ms"] / r["library_ms"])
+        for r in records.values()
+        if r["kernel"] == "K2" and r["ms"] is not None}
+    print(f"k2_vs_torch_sort {json.dumps(k2_vs_sort)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []

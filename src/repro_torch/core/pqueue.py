@@ -330,8 +330,8 @@ def _scatter_fast(cfg: PQConfig, par: ParPart, keys, vals):
     buckets = torch.where(appended, gk, torch.where(old, par.buckets, INF))
     bvals = torch.where(appended, gv,
                         torch.where(old, par.bvals, EMPTY_VAL))
-    kmin = torch.where(valid, keys, INF).amin(-1)
-    par_min = torch.minimum(par.par_min, kmin)
+    kmin = kops.amin_f32(torch.where(valid, keys, INF), -1)
+    par_min = kops.minimum_f32(par.par_min, kmin)
     par_count = par.par_count + valid.sum(-1, dtype=_I32)
     return ParPart(buckets, bvals, new_counts.clamp(max=bc),
                    par.splitters, par_min, par_count), overflow
@@ -570,7 +570,8 @@ def _repair_move(cfg: PQConfig, mid: TickMid) -> TickMid:
     nsv2 = torch.where(in_new, nsv2, EMPTY_VAL)
     # ranges and splitters survive an in-place extraction
     slotg = arange_i32(cfg.bucket_cap, sel_k)
-    npar_min = torch.where(slotg < nbc[..., None], nbk, INF).amin((-2, -1))
+    npar_min = kops.amin_f32(torch.where(slotg < nbc[..., None], nbk, INF),
+                             (-2, -1))
     newpar = ParPart(nbk, nbv, nbc, par.splitters, npar_min,
                      par.par_count - k_extract)
     return mid._replace(

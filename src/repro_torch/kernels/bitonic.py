@@ -2,10 +2,12 @@
 
 Replaces the JAX package's Pallas kernel
 ``kernels/bitonic.py::bitonic_sort_kvf`` with ``csrc/bitonic.cu``.  The
-name stays, but the port's sort is **stable**, where the reference's
-network is not: it sorts (u32-mapped key, index) pairs, which are all
-distinct, so it yields exactly the stable argsort on the u32 map
-(``ops.argsort_f32_last``: -0.0 before 0.0), at any row length.
+name stays, but the port's sort is an LSD radix sort, four stable 8-bit
+digit passes over the u32-mapped keys, and so it is **stable**, where
+the reference's network is not: it yields exactly the stable argsort on
+the u32 map (``ops.argsort_f32_last``: -0.0 before 0.0), at any row
+length.  A row of up to 4096 keys sorts in one CTA; a longer one in a
+multi-CTA onesweep (a histogram launch, then one launch per digit).
 
 * :func:`bitonic_sort_kvf` — the wrapper.  CPU tensors take the plain
   version; CUDA tensors launch the kernel on the current stream (never a
@@ -76,6 +78,6 @@ def bitonic_sort_kvf(keys, vals, flags):
     return ok, ov, of
 
 
-#: wrapper calls that launched the kernel (rows of up to 16384 keys take
-#: one CUDA launch; longer rows add one merge launch per doubling)
+#: wrapper calls that launched the kernel (rows of up to 4096 keys take
+#: one CUDA launch; longer rows a histogram launch and four digit passes)
 bitonic_sort_kvf.launches = 0

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface under ``build/`` at the repository root, on first
 use, and loads with ``ctypes`` (every pointer and the stream as
-``c_void_p``).  The library's file name carries a hash of its source, so
-an edited kernel never loads a stale build.  Kernels build only from the
-sources in this package; a failed build raises.
+``c_void_p``).  The library's file name carries a hash of its source and
+of the shared headers ``csrc/*.cuh``, so an edited kernel or header never
+loads a stale build.  Kernels build only from the sources in this
+package; a failed build raises.
 """
 
 from __future__ import annotations
@@ -40,9 +41,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library path of kernel ``name``, keyed by its source, every
+    shared header in ``csrc/`` and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> None:

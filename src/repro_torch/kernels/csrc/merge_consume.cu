@@ -9,7 +9,8 @@
 // multiple of the tile, and writes -0.0 as 0.0.  This one is a merge path:
 //
 //   merge_kernel  grid (ceil((n+m) / kTileOut), B): each CTA binary-searches
-//                 the co-rank of its two output diagonals in global memory,
+//                 the co-rank of its two output diagonals in global memory
+//                 (merge_path.cuh, shared with K3's head),
 //                 loads the keys between them into shared memory, lets each
 //                 thread find its own co-rank there and merge kItems outputs
 //                 serially (as source indices), then stores keys, vals and
@@ -31,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge_path.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -38,15 +41,8 @@ constexpr int kItems = 8;
 constexpr int kTileOut = kThreads * kItems;   // outputs per CTA
 constexpr long long kMaxGridY = 65535;
 
-// #{a-elements among the first d outputs} of the merge, ties a-first.
-__device__ int corank(const float* a, int n, const float* b, int m, int d) {
-  int lo = max(0, d - m), hi = min(d, n);
-  while (lo < hi) {
-    const int i = (lo + hi) >> 1;
-    if (a[i] <= b[d - i - 1]) lo = i + 1; else hi = i;
-  }
-  return lo;
-}
+using merge_path::corank;
+using merge_path::Ptr;
 
 __global__ void __launch_bounds__(kThreads) merge_kernel(
     const float* ak, const int* av, const int* af, const float* bk,
@@ -60,7 +56,8 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
   const size_t ro = (size_t)blockIdx.y * total;
   const int d0 = blockIdx.x * kTileOut;
   const int d1 = min(d0 + kTileOut, total);
-  if (tid < 2) cut[tid] = corank(ak + ra, n, bk + rb, m, tid ? d1 : d0);
+  if (tid < 2)
+    cut[tid] = corank(Ptr{ak + ra}, n, Ptr{bk + rb}, m, tid ? d1 : d0);
   __syncthreads();
   const int i0 = cut[0], j0 = d0 - cut[0];
   const int na = cut[1] - cut[0], len = d1 - d0, nb = len - na;
@@ -69,7 +66,7 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
   __syncthreads();
   const int ld = tid * kItems;
   if (ld < len) {
-    int i = corank(sk, na, sk + na, nb, ld);
+    int i = corank(Ptr{sk}, na, Ptr{sk + na}, nb, ld);
     int j = ld - i;
     const int end = min(ld + kItems, len);
     for (int q = ld; q < end; ++q) {

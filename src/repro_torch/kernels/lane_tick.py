@@ -43,6 +43,10 @@ _F32 = torch.float32
 #: the ones lane_tick_launch unpacks)
 _LANE_WS = 16
 
+#: output slots of [consumed prefix | new sequential part] per head tile
+#: CTA (TW in csrc/lane_tick.cu): seq_cap 131072 spreads over 65 tiles
+HEAD_TILE = 2048
+
 
 def _presort(lk, lv, lm):
     """The head's sanitize + stable a_max-wide sort, done outside the
@@ -137,14 +141,12 @@ def kernel_buffers(cfg, lanes: int, device):
     """Fresh (outputs, workspace) for one launch over ``lanes`` lanes."""
     outs = [torch.empty((lanes,) + s, dtype=d, device=device)
             for s, d in _out_layout(cfg)]
-    m = cfg.seq_cap + cfg.a_max
     nb, k = cfg.n_buckets, cfg.move_k_max
 
     def empty(width, dtype):
         return torch.empty((lanes, width), dtype=dtype, device=device)
 
-    ws = [empty(m, _F32), empty(m, _I32), empty(m, _I32),  # merged k/v/flag
-          empty(nb, _I32), empty(nb, _I32),         # seg_start, new_counts
+    ws = [empty(nb, _I32), empty(nb, _I32),         # seg_start, new_counts
           empty(nb, _I32), empty(nb, _I32),         # run offsets, nsel
           empty(nb, _F32),                          # survivor row minima
           empty(k, _F32), empty(k, _I32),           # extracted keys/vals
@@ -152,14 +154,17 @@ def kernel_buffers(cfg, lanes: int, device):
     return outs, ws
 
 
-def launch(cfg, inputs, outs, ws) -> None:
+def launch(cfg, inputs, outs, ws, head_tile=HEAD_TILE) -> None:
     """Launch the kernel on the current stream and raise if the launch
-    was refused.  Does not count: :func:`fused_tick_mid` does."""
-    dims = (ctypes.c_longlong * 13)(
+    was refused.  Does not count: :func:`fused_tick_mid` does.
+    ``head_tile`` is the head's output slots per tile CTA; only the
+    kernel's own checks pass another width than :data:`HEAD_TILE`, so
+    that short sequential parts cross tile edges."""
+    dims = (ctypes.c_longlong * 14)(
         inputs[0].shape[0], cfg.a_max, cfg.r_max, cfg.seq_cap,
         cfg.n_buckets, cfg.bucket_cap, cfg.move_k_max, cfg.spill_threshold,
         cfg.chop_patience, cfg.detach_min, cfg.detach_max,
-        cfg.halve_threshold, cfg.double_threshold)
+        cfg.halve_threshold, cfg.double_threshold, head_tile)
 
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))

@@ -109,6 +109,22 @@ def _searchsorted_compare_all(a, v, side: str = "left"):
     return cmp.sum(-1, dtype=_I32)
 
 
+def minimum_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise minimum of NaN-free floats as the reference takes it
+    (XLA's ``minimum``): -0.0 orders below 0.0.  ``torch.minimum`` may
+    return either zero."""
+    return torch.where((a < b) | ((a == b) & torch.signbit(a)), a, b)
+
+
+def amin_f32(x: torch.Tensor, dim) -> torch.Tensor:
+    """Minimum of NaN-free floats over ``dim`` as the reference takes it:
+    a zero minimum is -0.0 if any zero of the slice is.  ``amin`` picks
+    either zero, by the order of its reduction."""
+    m = x.amin(dim)
+    neg_zero = ((x == 0) & torch.signbit(x)).any(dim)
+    return torch.where((m == 0) & neg_zero, m.abs().neg(), m)
+
+
 def _to_sortable_u32(x: torch.Tensor) -> torch.Tensor:
     """The monotone float -> uint32 map (negative floats bit-invert,
     positives set the sign bit), held in int64 because ``>>`` is not

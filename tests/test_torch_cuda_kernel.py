@@ -6,10 +6,15 @@ imports nothing of JAX, so it runs on a machine with the card alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernel.py
 
 K3, the lane tick, at the repair-forcing geometry (every pass fires), at
-L=1 and L=3; K1, K2 and K4 on ties, INF padding, -0.0 and rows past one
-CTA's shared memory; and the kernel ops' "cuda" compositions on the card
-against the same compositions on the CPU.  Every output must equal its
-plain version's bit for bit, and each wrapper call counts one launch.
+L=1 and L=3, on a stream of distinct keys and on one whose keys tie, each
+at the wrapper's head tile width and at a width of 64 slots, so that the
+head's merge windows cross tile edges; K2 at row lengths around its
+one-CTA limit and past it, on all-equal keys (stability), both zeros, INF
+padding, negatives and duplicates; K1 and K4 on ties, INF padding, -0.0
+and rows past one CTA's shared memory; and the kernel ops' "cuda"
+compositions on the card against the same compositions on the CPU.
+Every output must equal its plain version's bit for bit, and each wrapper
+call counts one launch.
 """
 
 import numpy as np
@@ -26,9 +31,15 @@ CFG = PQConfig(a_max=W, r_max=W, seq_cap=512, n_buckets=4, bucket_cap=8,
                backend="torch")
 
 
-def _repair_batches(rng, ticks):
+#: keys of the duplicate-heavy stream: adds tie with the sequential part
+_POOL = np.array([0.0, -0.0, 1.0, 2.0, 3.0, 5.0, 8.0, 13.0, 21.0, 34.0],
+                 np.float32)
+
+
+def _repair_batches(rng, ticks, ties=False):
     """Adds pile up (scatter, rebalance), a big or tiny drain (moveHead),
-    then quiet ticks (chopHead); [T, W] keys/vals/mask and [T] removes."""
+    then quiet ticks (chopHead); [T, W] keys/vals/mask and [T] removes.
+    With ``ties`` the keys come from a few values."""
     ak = np.full((ticks, W), np.inf, np.float32)
     av = np.full((ticks, W), -1, np.int32)
     mask = np.zeros((ticks, W), bool)
@@ -37,7 +48,8 @@ def _repair_batches(rng, ticks):
         cycle, phase = t // 12, t % 12
         if phase < 4:
             n = int(rng.integers(W // 2, W + 1))
-            ak[t, :n] = np.round(rng.uniform(0, 1000, n), 3)
+            ak[t, :n] = (rng.choice(_POOL, n) if ties
+                         else np.round(rng.uniform(0, 1000, n), 3))
             av[t, :n] = np.arange(t * W, t * W + n)
             mask[t, :n] = True
         elif phase == 4:
@@ -54,11 +66,14 @@ def _same_bits(a, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("head_tile", [lane_tick.HEAD_TILE, 64])
+@pytest.mark.parametrize("stream", ["repair", "duplicates"])
 @pytest.mark.parametrize("lanes", [1, 3])
-def test_cuda_kernel_matches_plain_version(lanes):
+def test_cuda_kernel_matches_plain_version(lanes, stream, head_tile):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the lane-tick kernel has no CPU mode")
-    streams = [_repair_batches(np.random.default_rng(31 + i), 26)
+    streams = [_repair_batches(np.random.default_rng(31 + i), 26,
+                               ties=stream == "duplicates")
                for i in range(lanes)]
     states = [pqueue.init(CFG, "cuda") for _ in range(lanes)]
     fired = np.zeros(5, np.int64)
@@ -69,13 +84,19 @@ def test_cuda_kernel_matches_plain_version(lanes):
         n = len(pqueue.PQState._fields) - 1
         lanes_state = pqueue.PQState(*stacked[:n],
                                      stats=pqueue.PQStats(*stacked[n:]))
-        before = lane_tick.fused_tick_mid.launches
-        got = lane_tick.fused_tick_mid(CFG, lanes_state, *batch)
-        assert lane_tick.fused_tick_mid.launches == before + 1
+        if head_tile == lane_tick.HEAD_TILE:
+            before = lane_tick.fused_tick_mid.launches
+            got = lane_tick.fused_tick_mid(CFG, lanes_state, *batch)
+            assert lane_tick.fused_tick_mid.launches == before + 1
+        else:
+            inputs = lane_tick.kernel_inputs(CFG, lanes_state, *batch)
+            outs, ws = lane_tick.kernel_buffers(CFG, lanes, "cuda")
+            lane_tick.launch(CFG, inputs, outs, ws, head_tile=head_tile)
+            got = lane_tick.mid_from_outputs(outs, lanes_state.stats)
         want = lane_tick.fused_tick_mid_plain(CFG, lanes_state, *batch)
         for i, (g, w) in enumerate(zip(pqueue.tree_leaves(got),
                                        pqueue.tree_leaves(want))):
-            assert _same_bits(g, w), f"L={lanes} tick {t} leaf {i}"
+            assert _same_bits(g, w), f"{stream} tick {t} leaf {i}"
         p = got.pending
         fired += [int(x.any()) for x in (p.need_combine, p.need_scatter,
                                          p.need_rebal, p.need_move,
@@ -107,12 +128,35 @@ def _launched_once(wrapper, *args):
     return out
 
 
+def _sort_keys(rng, shape, mix):
+    """The key mixes of the K2 checks."""
+    if mix == "all_equal":                # stability: vals stay in order
+        return np.full(shape, 7.0, np.float32)
+    if mix == "signed_zeros":
+        return rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32), shape)
+    if mix == "inf_heavy":
+        k = rng.uniform(-100, 100, shape).astype(np.float32)
+        k[rng.random(shape) < 0.7] = np.inf
+        return k
+    if mix == "negative_duplicates":
+        return -rng.integers(0, 50, shape).astype(np.float32)
+    return _mixed_keys(rng, shape)
+
+
+#: one-CTA rows end at 4096 keys (csrc/bitonic.cu kRowTile)
+_SORT_SHAPES = [(3, 1), (3, 31), (3, 32), (4, 1000), (2, 4095), (2, 4096),
+                (2, 4097), (3, 16384), (2, 40000), (1, 65536), (1, 65537),
+                (1, 100000), (1024, 1024), (8, 512)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,n", [(4, 1000), (3, 16384), (2, 40000)])
-def test_bitonic_kernel_matches_plain_version(rows, n):
+@pytest.mark.parametrize("mix", ["mixed", "all_equal", "signed_zeros",
+                                 "inf_heavy", "negative_duplicates"])
+@pytest.mark.parametrize("rows,n", _SORT_SHAPES)
+def test_bitonic_kernel_matches_plain_version(rows, n, mix):
     _need_gpu()
     rng = np.random.default_rng(n)
-    keys = _mixed_keys(rng, (rows, n))
+    keys = _sort_keys(rng, (rows, n), mix)
     vals = rng.integers(-(1 << 30), 1 << 30, (rows, n)).astype(np.int32)
     flags = rng.integers(0, 2, (rows, n)).astype(np.int32)
     args = [torch.from_numpy(x).cuda() for x in (keys, vals, flags)]
@@ -120,7 +164,7 @@ def test_bitonic_kernel_matches_plain_version(rows, n):
     want = bitonic.bitonic_sort_kvf_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        assert _same_bits(g, w), (rows, n)
+        assert _same_bits(g, w), (rows, n, mix)
 
 
 @pytest.mark.gpu

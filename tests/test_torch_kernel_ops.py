@@ -89,6 +89,8 @@ def _keys(rng, shape, dist):
     elif dist == "signed_zero":
         k = rng.choice(np.array([0.0, -0.0, 1.5, -2.0, np.inf], np.float32),
                        shape)
+    elif dist == "all_equal":
+        k[...] = 7.0
     return k
 
 
@@ -196,13 +198,16 @@ def test_ref_oracles_match_reference():
 # K2: the stable row co-sort
 # ---------------------------------------------------------------------------
 
-_DISTS = ["uniform", "dups", "inf_pad", "negative", "signed_zero"]
+_DISTS = ["uniform", "dups", "inf_pad", "negative", "signed_zero",
+          "all_equal"]
 
 
-@pytest.mark.parametrize("n", [8, 64, 256, 1000])
+@pytest.mark.parametrize("n", [1, 8, 31, 64, 256, 1000, 4097])
 @pytest.mark.parametrize("key_dist", _DISTS)
 def test_sort_kvf_matches_jnp_branch(n, key_dist):
-    """Bit for bit, at any length (1000 is not a power of two)."""
+    """Bit for bit, at any length (1, 31, 1000 and 4097 are not powers of
+    two; 4097 is one past the kernel's one-CTA rows), and stable (all keys
+    equal keeps vals and flags in input order)."""
     rng = np.random.default_rng(n + 7 * _DISTS.index(key_dist))
     rows = 4
     keys = _keys(rng, (rows, n), key_dist)

@@ -24,11 +24,34 @@ from repro.kernels import ops as jops
 from repro_torch.core import PQConfig as TorchConfig
 from repro_torch.core import pqueue as tpq
 from repro_torch.kernels import lane_tick as tlt
-from test_lane_megakernel import BASE, _repair_stream
+from test_lane_megakernel import BASE, W, _batch, _repair_stream
 
 JNP = jops.resolve_backend("jnp")
 INTERP = jops.resolve_backend("pallas_interpret")
 TICKS = 26   # two repair cycles: both drain sizes, chop, rebalance
+
+
+def _dup_stream(rng, ticks):
+    """``_repair_stream``'s phases with keys from a pool of a few values
+    (both zeros among them), so adds tie with the sequential part, with
+    the parallel part and with each other."""
+    pool = np.array([0.0, -0.0, 1.0, 2.0, 3.0, 5.0, 8.0, 13.0, 21.0, 34.0],
+                    np.float32)
+    next_val = 0
+    for t in range(ticks):
+        cycle, phase = t // 12, t % 12
+        n_add, n_rm = 0, 0
+        if phase < 4:
+            n_add = int(rng.integers(W // 2, W + 1))
+        elif phase == 4:
+            n_rm = W if cycle % 2 else int(rng.integers(1, 5))
+        keys = rng.choice(pool, n_add)
+        vals = np.arange(next_val, next_val + n_add, dtype=np.int32)
+        next_val += n_add
+        yield _batch(keys, vals, W) + (jnp.asarray(n_rm, jnp.int32),)
+
+
+STREAMS = {"repair": _repair_stream, "duplicates": _dup_stream}
 
 
 def _port_cfg(cfg, backend):
@@ -51,18 +74,23 @@ def _assert_mid_equal(got, want, what):
     want_leaves = jax.tree.leaves(want)
     assert len(got_leaves) == len(want_leaves)
     for i, (g, w) in enumerate(zip(got_leaves, want_leaves)):
-        w = np.asarray(w)
-        assert g.numpy().dtype == w.dtype, (what, i, g.dtype, w.dtype)
-        np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{what} [{i}]")
+        g, w = g.numpy(), np.asarray(w)
+        assert g.dtype == w.dtype, (what, i, g.dtype, w.dtype)
+        if g.dtype == np.float32:      # bits: -0.0 differs from 0.0
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w, err_msg=f"{what} [{i}]")
 
 
-@pytest.mark.parametrize("lanes", [1, 3])
-def test_plain_fused_tick_mid_matches_reference(lanes):
+@pytest.mark.parametrize("lanes,stream", [
+    pytest.param(1, "repair", id="1"), pytest.param(3, "repair", id="3"),
+    pytest.param(1, "duplicates", id="1-duplicates"),
+    pytest.param(3, "duplicates", id="3-duplicates")])
+def test_plain_fused_tick_mid_matches_reference(lanes, stream):
     cfg_j = dataclasses.replace(BASE, backend=JNP)
     cfg_i = dataclasses.replace(BASE, backend=INTERP)
     cfg_t = _port_cfg(BASE, "cuda")
     ref_fused = jax.jit(functools.partial(jlt.fused_tick_mid, cfg_i))
-    streams = [list(_repair_stream(np.random.default_rng(21 + i), TICKS))
+    streams = [list(STREAMS[stream](np.random.default_rng(21 + i), TICKS))
                for i in range(lanes)]
     states = [jpq.init(cfg_j) for _ in range(lanes)]
     fired = np.zeros(5, np.int64)
@@ -75,7 +103,7 @@ def test_plain_fused_tick_mid_matches_reference(lanes):
         got = tlt.fused_tick_mid(
             cfg_t, _port_lanes(states),
             *(torch.from_numpy(np.array(x)) for x in (lk, lv, lm, grants)))
-        _assert_mid_equal(got, want, f"L={lanes} tick {t}")
+        _assert_mid_equal(got, want, f"{stream} L={lanes} tick {t}")
         p = got.pending
         fired += [int(x.any()) for x in (p.need_combine, p.need_scatter,
                                          p.need_rebal, p.need_move,

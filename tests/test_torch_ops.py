@@ -37,6 +37,25 @@ def test_sortable_u32_map_matches():
     np.testing.assert_array_equal(got, np.asarray(j_u32(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("n", [1, 2, 7, 300, 4097])
+def test_float_minima_match_reference_on_signed_zeros(n):
+    """The reference's min and minimum order -0.0 below 0.0; compared as
+    bits, since -0.0 == 0.0 as floats."""
+    rng = np.random.default_rng(n)
+    pool = np.array([0.0, -0.0, 0.0, 3.0, np.inf], np.float32)
+    x = rng.choice(pool, (6, n))
+    y = rng.choice(pool, (6, n))
+    got = tops.amin_f32(_t(x), -1).numpy()
+    want = np.asarray(jnp.min(jnp.asarray(x), axis=-1))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    got = tops.amin_f32(_t(x.reshape(2, 3, n)), (-2, -1)).numpy()
+    want = np.asarray(jnp.min(jnp.asarray(x.reshape(2, 3, n)), axis=(-2, -1)))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    got = tops.minimum_f32(_t(x), _t(y)).numpy()
+    want = np.asarray(jnp.minimum(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_searchsorted_last_matches_reference():
     """tests/test_kernels.py's searchsorted sweep: sides, ties, INF
     padding, int dtypes and leading dims, across both branches."""
