@@ -10,10 +10,11 @@ Phases, each fatal on failure:
    build/ (one nvcc per source, all at once);
 3. kernel vs plain version — the lane-tick kernel against its plain
    PyTorch version on the card, bit for bit, on states driven through
-   real ticks, at nine geometry/lane settings (the repair-forcing
+   real ticks, at eleven geometry/lane settings (the repair-forcing
    geometry also at a head tile width of 64 slots, so merge windows
-   cross tile edges, and on a stream whose keys tie); both timed on the
-   device clock, with the host-clocked call time beside it;
+   cross tile edges, and on a stream whose keys tie; the lane geometries
+   of the two sharded cells of phase 7 at L=8); both timed on the device
+   clock, with the host-clocked call time beside it;
 4. main path at w4096 — ``make_engine(EngineSpec(engine="pqe",
    width=4096))`` (the "cuda" kernel backend) beside a "torch" twin: warm
    2000 keys, 200 ticks at p_add 0.5 with DES keys, quiet ticks until
@@ -22,8 +23,8 @@ Phases, each fatal on failure:
    passes fired, one kernel call per tick;
 5. main path at PRODUCTION — filled to 262,144 residents, then 100 mixed
    ticks of uniform keys; the same checks, moveHead fired.  After it, the
-   K1, K2 and K4 launch counts are still 0: no engine path runs them, as
-   in the reference;
+   K1, K2 and K4 launch counts are still 0: the pqe path runs none of
+   them, as in the reference;
 6. the kernel-ops path — ``sort_kvf`` (K2), ``merge_sorted`` (K1),
    ``select_threshold`` (K4), ``select_k_smallest`` and
    ``extract_k_bucketed`` (K4 then K2) under the "cuda" backend, at the
@@ -31,7 +32,18 @@ Phases, each fatal on failure:
    phases 4-5 leave, and K2 also at row lengths around its one-CTA limit
    (1 to 100000 keys), each held bit for bit against the same op under
    the "torch" backend and timed on the device clock beside it and one
-   PyTorch library call (for K2, ``torch.sort``, listed beside it).
+   PyTorch library call (for K2, ``torch.sort``, listed beside it);
+7. the sharded main path — ``make_engine(EngineSpec(engine="sharded",
+   lanes=8, ...))`` beside a "torch" twin drawing the same routes on the
+   card, at two cells: w4096 (2000 keys warm, 200 ticks at p_add 0.5
+   with DES keys, quiet ticks until chopHead fires) and PRODUCTION
+   (filled to 262,144 residents, then 100 ticks at p_add 0.5 with
+   uniform keys).  Every tick: results and states bit-equal between the
+   two, the exact multiset conserved (residents = adds - served),
+   nothing dropped by a lane or the router, every served key within
+   ``relax_bound`` smallest of the pre-tick contents and the tick's
+   adds.  The lane-tick kernel (K3, grid L=8) and the router's row sort
+   (K2) launch once on each tick that does lane work; K1 and K4 never.
 
 The last lines are a JSON record of the kernels and the run's status
 line.  Imports nothing of JAX or of the JAX package.
@@ -57,6 +69,14 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak (NVIDIA data sheet)
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -301,12 +321,18 @@ def time_ticks(eng, state, rows):
     return (time.perf_counter() - t0) / ak.shape[0] * 1e6
 
 
+#: kernels of the port by profiler name: (group, kernel names)
+KERNEL_GROUPS = (("lane_tick", ("head_kernel", "rows_kernel", "move_kernel")),
+                 ("router_sort", ("row_sort_kernel", "sweep_kernel")))
+
+
 def kernel_share(eng, state, rows):
-    """Device time over a profiled window of ticks: the lane-tick
-    kernels by name, every device event (kernels, copies, fills) in all,
-    and both as shares of the window's wall time; None when the profiler
-    records no device time.  Only device events are summed: a CPU op's
-    self device time repeats the kernels it launched."""
+    """Device time over a profiled window of ticks: the port's kernels
+    by name (the lane tick's three, and K2's, the sharded router's sort),
+    every device event (kernels, copies, fills) in all, and both as
+    shares of the window's wall time; None when the profiler records no
+    device time.  Only device events are summed: a CPU op's self device
+    time repeats the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     ak, av, mask, rm = rows
@@ -319,25 +345,29 @@ def kernel_share(eng, state, rows):
             state, _ = eng.tick(state, ak[t], av[t], mask[t], rm[t])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    ours, others = {}, {}
+    ours = {group: {} for group, _ in KERNEL_GROUPS}
+    others = {}
     total = launches = 0.0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         total += ev.self_device_time_total
         launches += ev.count
-        name = next((k for k in ("head_kernel", "rows_kernel", "move_kernel")
-                     if k in ev.key), None)
-        if name:
-            ours[name] = ours.get(name, 0.0) + ev.self_device_time_total / n
+        hit = next(((g, k) for g, names in KERNEL_GROUPS for k in names
+                    if k in ev.key), None)
+        if hit:
+            g, k = hit
+            ours[g][k] = ours[g].get(k, 0.0) + ev.self_device_time_total / n
         else:
             others[ev.key[:60]] = ev.self_device_time_total / n
     if total <= 0:
         return None
     top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:6])
-    kernel_us = sum(ours.values())
+    kernel_us = sum(sum(g.values()) for g in ours.values())
     return dict(ticks=n, wall_us_per_tick=wall_us / n,
-                kernel_us_per_tick=kernel_us, lane_tick_us_per_tick=ours,
+                kernel_us_per_tick=kernel_us,
+                lane_tick_us_per_tick=ours["lane_tick"],
+                router_sort_us_per_tick=ours["router_sort"],
                 device_us_per_tick=total / n,
                 device_events_per_tick=launches / n,
                 kernel_share_of_wall=kernel_us * n / wall_us,
@@ -354,16 +384,23 @@ STAGES = (("pq", "_tick_head"), ("pq", "_pass_combine"),
           ("pq", "_tick_finish"))
 
 
-def stage_split(eng, state, rows, pq, lt):
+#: stages of the sharded tick, timed beside STAGES
+SHARDED_STAGES = STAGES + (("sh", "_preroute_eliminate"),
+                           ("sh", "_controller_update"),
+                           ("sh", "_route_adds_sorted"),
+                           ("sh", "_alloc_removes"),
+                           ("sh", "_fold_results"))
+
+
+def stage_split(eng, state, rows, mods, stages=STAGES):
     """Wall time per tick of each stage the tick calls, synchronising
     the device before and after every stage, over a window of ticks
     (a separate run: the syncs inflate its total).  The stages are
     module functions the tick looks up at call time, so each is swapped
     for a timed wrapper for the window and restored after."""
-    mods = {"pq": pq, "lt": lt}
-    spent = {name: 0.0 for _, name in STAGES}
-    calls = {name: 0 for _, name in STAGES}
-    saved = {name: getattr(mods[m], name) for m, name in STAGES}
+    spent = {name: 0.0 for _, name in stages}
+    calls = {name: 0 for _, name in stages}
+    saved = {name: getattr(mods[m], name) for m, name in stages}
 
     def timed(name, fn):
         def run(*a, **k):
@@ -379,7 +416,7 @@ def stage_split(eng, state, rows, pq, lt):
     ak, av, mask, rm = rows
     n = ak.shape[0]
     try:
-        for m, name in STAGES:
+        for m, name in stages:
             setattr(mods[m], name, timed(name, saved[name]))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -388,7 +425,7 @@ def stage_split(eng, state, rows, pq, lt):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for m, name in STAGES:
+        for m, name in stages:
             setattr(mods[m], name, saved[name])
     us = {k: v / n * 1e6 for k, v in spent.items() if calls[k]}
     return dict(ticks=n, wall_us_per_tick=wall / n * 1e6,
@@ -397,21 +434,24 @@ def stage_split(eng, state, rows, pq, lt):
                 rest_us_per_tick=(wall - sum(spent.values())) / n * 1e6)
 
 
-def timings(cell, engines, start_states, rows, window, pq, lt):
+def timings(cell, engines, start_states, rows, window, mods,
+            stages=STAGES):
     """us/tick of each backend from the same start state, in turns
     (cuda, torch, torch, cuda); then, over the first ``window`` ticks, a
-    profiled run of the cuda engine and a stage split of each."""
+    profiled run of the cuda engine and a stage split of each.  Returns
+    the record."""
     (eng_c, eng_t), (s_c, s_t) = engines, start_states
     us_c = [time_ticks(eng_c, s_c, rows)]
     us_t = [time_ticks(eng_t, s_t, rows), time_ticks(eng_t, s_t, rows)]
     us_c.append(time_ticks(eng_c, s_c, rows))
     part = tuple(x[:window] for x in rows)
-    rec = dict(cell=cell, ticks=int(rows[0].shape[0]),
+    rec = dict(cell=cell, device=card(), ticks=int(rows[0].shape[0]),
                us_per_tick_cuda=us_c, us_per_tick_torch=us_t,
                profile_cuda=kernel_share(eng_c, s_c, part),
-               stages_cuda=stage_split(eng_c, s_c, part, pq, lt),
-               stages_torch=stage_split(eng_t, s_t, part, pq, lt))
+               stages_cuda=stage_split(eng_c, s_c, part, mods, stages),
+               stages_torch=stage_split(eng_t, s_t, part, mods, stages))
     print(f"main_path {json.dumps(rec)}", flush=True)
+    return rec
 
 
 def make_pair(factory, **spec):
@@ -454,7 +494,8 @@ def main_path_w4096(args, factory, pq, lt, RefPQ):
         fail(f"w4096: {launches} kernel calls for {ticks} cuda ticks")
     if not (fired > 0).all():
         fail(f"w4096: not every pass fired: {fired.tolist()}")
-    timings("w4096_p50_des", engines, warm_states, mix_rows, 50, pq, lt)
+    timings("w4096_p50_des", engines, warm_states, mix_rows, 50,
+            {"pq": pq, "lt": lt})
     return dict(launches=launches, cfg=engines[0].cfg, state=mix_states[0],
                 rows=mix_rows)
 
@@ -487,7 +528,8 @@ def main_path_production(args, factory, pq, lt, RefPQ, config):
         fail(f"PRODUCTION: {launches} kernel calls for {n1 + n2} cuda ticks")
     if f2[3] == 0:
         fail("PRODUCTION: moveHead never fired")
-    timings("production_p50_uniform", engines, filled, mix_rows, 30, pq, lt)
+    timings("production_p50_uniform", engines, filled, mix_rows, 30,
+            {"pq": pq, "lt": lt})
     return dict(launches=launches, cfg=engines[0].cfg, state=states[0],
                 rows=mix_rows)
 
@@ -562,6 +604,9 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
         "PRODUCTION bucket rows [1024, 1024]": (pk, pv),
         "sharded L=8 lane batch [8, 512]": (wk_add.reshape(8, 512),
                                             wv_add.reshape(8, 512)),
+        "sharded L=8 lane batch [8, 128]": (
+            prod["rows"][0][:1].reshape(8, 128).clone(),
+            prod["rows"][1][:1].reshape(8, 128).clone()),
         "PRODUCTION k_max row [1, 65536]": (pk.reshape(1, -1)[:, :65536],
                                             pv.reshape(1, -1)[:, :65536]),
     }
@@ -720,6 +765,176 @@ def kernel_ops_path(args, w4096, prod, ops, pq, wrappers, bitonic,
     return records, totals
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the sharded main path
+# ---------------------------------------------------------------------------
+
+def packed_pairs(ops, keys, vals):
+    """(key, val) pairs as one int64 each, ordered by key on the u32 map,
+    then by val: equal multisets sort to equal arrays."""
+    u = ops._to_sortable_u32(keys.contiguous()) - (1 << 31)
+    return (u << 32) | (vals.long() & 0xFFFFFFFF)
+
+
+class Conservation:
+    """The exact multiset of a sharded queue, checked every tick:
+    residents after the tick plus the served pairs equal residents before
+    it plus the tick's adds, as sorted (key, val) pairs; and every served
+    key lies within ``relax_bound(r)`` smallest of residents before plus
+    adds.  Starts from an empty queue."""
+
+    def __init__(self, eng, ops):
+        self.eng, self.ops = eng, ops
+        self.pairs = torch.zeros((0,), dtype=torch.int64, device="cuda")
+        self.keys = torch.zeros((0,), dtype=torch.float32, device="cuda")
+        self.worst = (0, 0)      # (largest served rank, its tick's c)
+
+    def tick(self, label, t, state, result, ak, av, mask, rm):
+        keys, vals, live = self.eng.resident(state)
+        keys, vals = keys[live], vals[live]
+        pairs = torch.sort(packed_pairs(self.ops, keys, vals)).values
+        served_k = result.rm_keys[result.rm_served]
+        served_v = result.rm_vals[result.rm_served]
+        after = torch.sort(torch.cat(
+            [pairs, packed_pairs(self.ops, served_k, served_v)])).values
+        before = torch.sort(torch.cat(
+            [self.pairs, packed_pairs(self.ops, ak[mask], av[mask])])).values
+        if not torch.equal(after, before):
+            fail(f"{label} tick {t}: residents + served != residents before "
+                 f"+ adds ({after.numel()} vs {before.numel()} pairs)")
+        union = torch.sort(torch.cat([self.keys, ak[mask]])).values
+        c = self.eng.relax_bound(int(rm))
+        if served_k.numel():
+            # the served key's rank: how many union keys lie below it
+            rank = int(torch.searchsorted(union, served_k.max())) + 1
+            self.worst = max(self.worst, (rank, c))
+            if rank > c:
+                fail(f"{label} tick {t}: served {float(served_k.max())} "
+                     f"of rank {rank} in the union, beyond c={c}")
+        self.pairs, self.keys = pairs, torch.sort(keys).values
+
+
+def drive_sharded(label, engines, states, rows, cons, pq, shq, stop=None):
+    """Tick the sharded cuda engine and its torch twin over device rows,
+    checking each tick: results and every state leaf bit-equal (the
+    router's generator state too), the multiset conserved and the
+    envelope held (``cons``), nothing dropped.  Counts the ticks that did
+    lane work (``shq.lane_work_marks`` grows).  Returns (states, ticks
+    run, lane-work ticks)."""
+    eng_c, eng_t = engines
+    s_c, s_t = states
+    ak, av, mask, rm = rows
+    ran = work = 0
+    marks = shq.lane_work_marks(s_c)
+    for t in range(ak.shape[0]):
+        s_c, r_c = eng_c.tick(s_c, ak[t], av[t], mask[t], rm[t])
+        marks, before = shq.lane_work_marks(s_c), marks
+        work += marks > before
+        s_t, r_t = eng_t.tick(s_t, ak[t], av[t], mask[t], rm[t])
+        for i, (a, b) in enumerate(zip(pq.tree_leaves((s_c, r_c)),
+                                       pq.tree_leaves((s_t, r_t)))):
+            if not same_bits(a, b):
+                fail(f"{label} tick {t}: leaf {i} of (state, result) "
+                     "differs between the cuda and torch backends")
+        if int(s_c.lanes.stats.n_dropped.sum()) or int(s_c.n_router_dropped):
+            fail(f"{label} tick {t}: the queue dropped keys")
+        cons.tick(label, t, s_c, r_c, ak[t], av[t], mask[t], rm[t])
+        ran += 1
+        if stop is not None and stop(s_c):
+            break
+    return (s_c, s_t), ran, work
+
+
+def sharded_pair(factory, **spec):
+    eng_c = factory.make_engine(factory.EngineSpec(engine="sharded", **spec))
+    eng_t = factory.make_engine(factory.EngineSpec(
+        engine="sharded", backend="torch", **spec))
+    if eng_c.cfg.lane.backend != "cuda" or eng_c.device.type != "cuda":
+        fail("the default sharded engine is not the cuda backend on the card")
+    return (eng_c, eng_t), (eng_c.init(seed=0), eng_t.init(seed=0))
+
+
+def lane_fired(state):
+    st = state.lanes.stats
+    return {k: int(getattr(st, k).sum()) for k in (
+        "add_seq", "add_par", "n_rebalance", "n_movehead", "n_chophead",
+        "n_spill")} | {"n_preroute_elim": int(state.n_preroute_elim),
+                       "n_preroute_ticks": int(state.n_preroute_ticks)}
+
+
+def sharded_path(args, factory, config, pq, shq, lt, ops, counters):
+    """Phase 7 over both cells.  Every launch count is set to 0 before
+    each cell and read after it.  Returns {cell: record}."""
+    mods = {"pq": pq, "lt": lt, "sh": shq}
+    out = {}
+    for cell in ("sharded_w4096_L8_des", "sharded_production_L8_uniform"):
+        w4096 = cell.startswith("sharded_w4096")
+        width = 4096 if w4096 else 1024
+        spec = dict(width=width, lanes=8)
+        if not w4096:
+            spec["base"] = config.PRODUCTION
+        engines, states = sharded_pair(factory, **spec)
+        rng = np.random.default_rng(args.seed + (7 if w4096 else 8))
+        if w4096:
+            warm = rng.uniform(0, KEY_HI, WARM_ELEMENTS).astype(np.float32)
+            first = to_device(batch_rows(width, [warm], [0]))
+            mix, rms, lo = mix_keys(rng, width, 0.5, 200, "des")
+            quiet = [(lo + rng.exponential(KEY_HI / WARM_ELEMENTS * 8, 64))
+                     .astype(np.float32) for _ in range(200)]
+            quiet_rows = to_device(batch_rows(width, quiet, [0] * 200))
+        else:
+            n_fill = 262_144 // width
+            fill = [rng.uniform(0, KEY_HI, width).astype(np.float32)
+                    for _ in range(n_fill)]
+            first = to_device(batch_rows(width, fill, [0] * n_fill))
+            mix, rms, _ = mix_keys(rng, width, 0.5, 100, "uniform")
+        mix_rows = to_device(batch_rows(width, mix, rms))
+
+        cons = Conservation(engines[0], ops)
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        ticks = work = 0
+        for part, rows in (("fill", first), ("mix", mix_rows)):
+            states, n, k = drive_sharded(f"{cell} {part}", engines, states,
+                                         rows, cons, pq, shq)
+            ticks, work = ticks + n, work + k
+            if part == "fill":
+                start = states
+                resident = int(shq.size(states[0]))
+        if w4096:
+            states, n, k = drive_sharded(
+                f"{cell} quiet", engines, states, quiet_rows, cons, pq, shq,
+                stop=lambda s: int(s.lanes.stats.n_chophead.sum()) > 0)
+            ticks, work = ticks + n, work + k
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in counters.items()}
+        fired = lane_fired(states[0])
+        print(f"{cell}: ticks {ticks}, lane-work ticks {work}, launches "
+              f"{launches}, resident after fill {resident}, now "
+              f"{int(shq.size(states[0]))}, lane counters {fired}, largest "
+              f"served rank in the union (rank, c) {cons.worst}", flush=True)
+        if launches["fused_tick_mid"] != work or work == 0:
+            fail(f"{cell}: {launches['fused_tick_mid']} lane-tick launches "
+                 f"for {work} lane-work ticks")
+        if launches["bitonic_sort_kvf"] != work:
+            fail(f"{cell}: {launches['bitonic_sort_kvf']} router sorts for "
+                 f"{work} lane-work ticks")
+        if launches["merge_sorted_kvf"] or launches["radix_select_threshold"]:
+            fail(f"{cell}: the sharded path launched K1 or K4: {launches}")
+        if fired["n_movehead"] == 0:
+            fail(f"{cell}: moveHead never fired")
+        if w4096 and fired["n_chophead"] == 0:
+            fail(f"{cell}: chopHead never fired")
+        if not w4096 and resident != 262_144:
+            fail(f"{cell}: {resident} resident after the fill, not 262144")
+        rec = timings(cell, engines, start, mix_rows, 50 if w4096 else 30,
+                      mods, SHARDED_STAGES)
+        out[cell] = dict(launches=launches, work=work, ticks=ticks,
+                         fired=fired, worst_rank=cons.worst, timing=rec)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -732,6 +947,7 @@ def main() -> None:
              "a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import config, factory, pqueue as pq
+    from repro_torch.core import sharded as shq
     from repro_torch.core.ref_pq import RefPQ
     from repro_torch.kernels import bitonic, build, merge_consume
     from repro_torch.kernels import lane_tick as lt
@@ -743,10 +959,7 @@ def main() -> None:
 
     t_start = time.perf_counter()
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card()
     name = torch.cuda.get_device_name(0)
     print(f"device: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -805,6 +1018,16 @@ def main() -> None:
     records_k3["production"] = kernel_vs_plain(
         "production_L1", prod, mix_streams(1, 1024, 16, 6, "uniform"),
         16, lt, pq)
+    # the lane geometries of phase 7's cells, all eight lanes in one launch
+    for cell, spec, dist, warm in (
+            ("sharded_w4096", dict(width=4096), "des", 1),
+            ("sharded_production", dict(width=1024, base=config.PRODUCTION),
+             "uniform", 16)):
+        lane = factory.make_engine(factory.EngineSpec(
+            engine="sharded", lanes=8, backend="torch", **spec)).cfg.lane
+        records_k3[cell] = kernel_vs_plain(
+            f"{cell}_L8", lane, mix_streams(8, lane.a_max, warm, 6, dist),
+            warm, lt, pq)
 
     # 4-5. the main path through the engine API
     w4096_run = main_path_w4096(args, factory, pq, lt, RefPQ)
@@ -812,7 +1035,7 @@ def main() -> None:
     engine_k124 = {k: w.launches for k, w in wrappers.items()}
     print(f"K1/K2/K4 launches after phases 3-5: {engine_k124}", flush=True)
     if any(engine_k124.values()):
-        fail(f"an engine path launched K1, K2 or K4: {engine_k124}")
+        fail(f"the pqe path launched K1, K2 or K4: {engine_k124}")
 
     # 6. the kernel-ops path
     t6 = time.perf_counter()
@@ -826,6 +1049,12 @@ def main() -> None:
         for r in records.values()
         if r["kernel"] == "K2" and r["ms"] is not None}
     print(f"k2_vs_torch_sort {json.dumps(k2_vs_sort)}", flush=True)
+
+    # 7. the sharded main path
+    t7 = time.perf_counter()
+    sharded = sharded_path(args, factory, config, pq, shq, lt, ops,
+                           dict(wrappers, fused_tick_mid=lt.fused_tick_mid))
+    print(f"sharded path: {time.perf_counter() - t7:.1f} s", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -838,6 +1067,27 @@ def main() -> None:
             launches=run["launches"], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes", library_ms=None))
+    for cell, k3, k2 in (
+            ("sharded_w4096_L8_des", "sharded_w4096",
+             "sort_kvf sharded L=8 lane batch [8, 512] uniform"),
+            ("sharded_production_L8_uniform", "sharded_production",
+             "sort_kvf sharded L=8 lane batch [8, 128] uniform")):
+        run, r = sharded[cell], records_k3[k3]
+        kernels.append(dict(
+            name=f"lane_tick[{cell}]", route="cuda",
+            source="src/repro_torch/kernels/csrc/lane_tick.cu",
+            replaces="src/repro/kernels/lane_tick.py:185",
+            launches=run["launches"]["fused_tick_mid"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by="bytes", library_ms=None))
+        kernels.append(dict(
+            name=f"bitonic_sort_kvf[router {cell}]", route="cuda",
+            source="src/repro_torch/kernels/csrc/bitonic.cu",
+            replaces="src/repro/kernels/bitonic.py:89",
+            launches=run["launches"]["bitonic_sort_kvf"],
+            max_abs_err=records[k2]["max_abs_err"],
+            **{k: records[k2][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}))
     for kname, wrapper, src, replaces, label in (
             ("K1", "merge_sorted_kvf", "merge_consume.cu",
              "src/repro/kernels/merge_consume.py:119",

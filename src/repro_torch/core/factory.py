@@ -8,8 +8,9 @@ The same surface as the JAX package's ``core/factory.py``::
     state = eng.init(seed=0)
     state, res = eng.tick(state, keys, vals, mask, rm_count)
 
-Only the paper's combined queue (``"pqe"``) is ported so far; any other
-kind raises ``ValueError`` naming the registered kinds.  Engines run on
+The paper's combined queue (``"pqe"``) and the L-lane relaxed queue
+(``"sharded"``) are ported; any other kind raises ``ValueError`` naming
+the registered kinds.  Engines run on
 ``device="cuda"`` unless the caller passes ``device="cpu"``; the
 ``"cuda"`` kernel backend on a CPU device raises at construction.
 """
@@ -22,6 +23,7 @@ from typing import Any, Callable, Dict, Optional, Protocol, runtime_checkable
 import torch
 
 from repro_torch.core import pqueue
+from repro_torch.core import sharded as shq
 from repro_torch.core.config import PQConfig
 
 
@@ -54,7 +56,7 @@ _DETACH_KNOBS = (
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    """The spec fields the combined queue reads."""
+    """The spec fields the ported engines read."""
 
     engine: str = "pqe"
     width: int = 256  # op-batch width W per tick
@@ -63,12 +65,23 @@ class EngineSpec:
     # "cuda" | "torch"; None keeps the base config's backend
     backend: Optional[str] = None
 
+    # lane geometry (sharded); min_lanes is fold headroom: quotas sized
+    # so the queue can fold down to it
+    lanes: int = 4
+    min_lanes: Optional[int] = None
+    slack: float = 1.0
+    preroute: str = "adaptive"
+
     # paper §2.1 adaptive-detach knobs; None keeps the base config value
     detach_min: Optional[int] = None
     detach_max: Optional[int] = None
     detach_init: Optional[int] = None
     halve_threshold: Optional[int] = None
     double_threshold: Optional[int] = None
+
+    # rank-error budget (sharded): clamp lanes so the analytic envelope
+    # relax_bound(W) - W fits it (None = unbudgeted)
+    quality_budget: Optional[float] = None
 
 
 def default_base(width: int) -> PQConfig:
@@ -97,6 +110,29 @@ def resolved_base(spec: EngineSpec) -> PQConfig:
     if spec.backend is not None:
         over["backend"] = spec.backend
     return dataclasses.replace(base, **over) if over else base
+
+
+def lanes_within_budget(spec: EngineSpec, lanes: int) -> int:
+    """Widest lane count <= ``lanes`` whose envelope ``relax_bound(cfg_L,
+    W) - W`` fits ``spec.quality_budget`` (``lanes`` when unbudgeted;
+    L = 1 is exact, so the walk ends)."""
+    if spec.quality_budget is None:
+        return lanes
+    budget = float(spec.quality_budget)
+    base = resolved_base(spec)
+    for ln in range(lanes, 0, -1):
+        cfg = _sharded_cfg_of(spec, ln, base)
+        if shq.relax_bound(cfg, spec.width) - spec.width <= budget:
+            return ln
+    return 1
+
+
+def _sharded_cfg_of(spec: EngineSpec, lanes: int,
+                    base: PQConfig) -> shq.ShardedPQConfig:
+    ml = spec.min_lanes
+    return shq._sharded_cfg(spec.width, lanes, base=base, slack=spec.slack,
+                            min_lanes=None if ml is None else min(ml, lanes),
+                            preroute=spec.preroute)
 
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
@@ -129,16 +165,20 @@ def make_engine(spec: EngineSpec, *, device="cuda") -> QueueEngine:
     return build(spec, device=torch.device(device))
 
 
+def _check_device(backend: str, device: torch.device) -> None:
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"the cuda kernel backend needs a cuda device, got {device}; "
+            "pass backend='torch' to run on the CPU")
+
+
 class PQEngine:
     """The paper's combined queue (repro_torch.core.pqueue) as an engine."""
 
     kind = "pqe"
 
     def __init__(self, cfg: PQConfig, device: torch.device):
-        if cfg.backend == "cuda" and device.type != "cuda":
-            raise ValueError(
-                f"the cuda kernel backend needs a cuda device, got {device}; "
-                "pass backend='torch' to run on the CPU")
+        _check_device(cfg.backend, device)
         self.cfg = cfg
         self.device = device
 
@@ -172,3 +212,48 @@ class PQEngine:
 @register("pqe")
 def _build_pqe(spec: EngineSpec, *, device: torch.device) -> PQEngine:
     return PQEngine(resolved_base(spec), device)
+
+
+class ShardedEngine:
+    """The L-lane relaxed queue (repro_torch.core.sharded) as an engine."""
+
+    kind = "sharded"
+
+    def __init__(self, cfg: shq.ShardedPQConfig, device: torch.device):
+        _check_device(cfg.lane.backend, device)
+        self.cfg = cfg
+        self.device = device
+
+    @property
+    def width(self) -> int:
+        return self.cfg.a_total
+
+    def init(self, *, seed: int = 0):
+        return shq.init(self.cfg, seed=seed, device=self.device)
+
+    def tick(self, state, add_keys, add_vals, add_mask, rm_count):
+        return shq.tick(self.cfg, state, add_keys, add_vals, add_mask,
+                        rm_count)
+
+    def tick_n(self, state, add_keys, add_vals, add_mask, rm_counts):
+        return shq.tick_n(self.cfg, state, add_keys, add_vals, add_mask,
+                          rm_counts)
+
+    def stats(self, state):
+        return shq.stats(state)
+
+    def resident(self, state):
+        return shq.resident(self.cfg, state.lanes)
+
+    def relax_bound(self, rm_count: int) -> int:
+        return shq.relax_bound(self.cfg, rm_count)
+
+    def size(self, state):
+        return shq.size(state)
+
+
+@register("sharded")
+def _build_sharded(spec: EngineSpec, *, device: torch.device) -> ShardedEngine:
+    lanes = lanes_within_budget(spec, spec.lanes)
+    return ShardedEngine(_sharded_cfg_of(spec, lanes, resolved_base(spec)),
+                         device)

@@ -48,9 +48,14 @@ _LANE_WS = 16
 HEAD_TILE = 2048
 
 
-def _presort(lk, lv, lm):
+def _presort(lk, lv, lm, adds_sorted=False):
     """The head's sanitize + stable a_max-wide sort, done outside the
-    kernel: the kernel then runs the adds_sorted head on the same bits."""
+    kernel: the kernel then runs the adds_sorted head on the same bits.
+    ``adds_sorted=True`` promises each row is already stably key-sorted
+    with a prefix mask (the router's output) and passes the batch through:
+    the head (and the kernel) sanitize it themselves."""
+    if adds_sorted:
+        return lk, lv, lm
     sk = torch.where(lm, lk.to(_F32), INF)
     sv = torch.where(lm, lv.to(_I32), EMPTY_VAL)
     ak, av, _ = kops.sort_kvf(sk, sv, torch.zeros_like(sv),
@@ -69,10 +74,10 @@ def _fused_form(mid: pqueue.TickMid, stats0) -> pqueue.TickMid:
 
 
 def fused_tick_mid_plain(cfg, lanes: pqueue.PQState, lk, lv, lm,
-                         grants) -> pqueue.TickMid:
+                         grants, *, adds_sorted=False) -> pqueue.TickMid:
     """The kernel's plain version: the ported pass chain over [L, ...]
     lanes, with the lanes' stats zeroed inside (they ride to finish)."""
-    ak, av, am = _presort(lk, lv, lm)
+    ak, av, am = _presort(lk, lv, lm, adds_sorted)
     state = lanes._replace(
         stats=pqueue.tree_map(torch.zeros_like, lanes.stats))
     mid = pqueue._tick_head(cfg, state, ak, av, am, grants,
@@ -121,17 +126,19 @@ def _check_inputs(cfg, inputs):
             raise ValueError(f"input {n} is not contiguous")
 
 
-def kernel_inputs(cfg, lanes: pqueue.PQState, lk, lv, lm, grants):
+def kernel_inputs(cfg, lanes: pqueue.PQState, lk, lv, lm, grants,
+                  adds_sorted=False):
     """The kernel's 18 [L, ...] inputs: the lane state, the presorted
     add batch and the grants, checked for device, dtype, shape and
     contiguity."""
-    ak, av, am = _presort(lk, lv, lm)
+    ak, av, am = _presort(lk, lv, lm, adds_sorted)
     inputs = [
         lanes.seq_keys, lanes.seq_vals, lanes.seq_len,
         lanes.buckets, lanes.bvals, lanes.bcounts, lanes.splitters,
         lanes.par_min, lanes.par_count, lanes.min_value, lanes.last_seq,
         lanes.detach_n, lanes.ins_since_move, lanes.quiet_ticks,
-        ak, av, am.to(_I32), grants.to(_I32).contiguous(),
+        ak.to(_F32).contiguous(), av.to(_I32).contiguous(),
+        am.to(_I32).contiguous(), grants.to(_I32).contiguous(),
     ]
     _check_inputs(cfg, inputs)
     return inputs
@@ -180,22 +187,25 @@ def launch(cfg, inputs, outs, ws, head_tile=HEAD_TILE) -> None:
                            + lib.lane_tick_error_string(err).decode())
 
 
-def fused_tick_mid(cfg, lanes: pqueue.PQState, lk, lv, lm,
-                   grants) -> pqueue.TickMid:
+def fused_tick_mid(cfg, lanes: pqueue.PQState, lk, lv, lm, grants, *,
+                   adds_sorted=False) -> pqueue.TickMid:
     """Run the hot tick of every lane and return the lane-batched
     :class:`pqueue.TickMid` (rare repairs still pending — the caller
     runs them behind its branches, then ``_tick_finish``).
 
     ``lanes`` is a [L, ...]-stacked PQState, ``lk/lv/lm`` the [L, a_max]
-    add batches (any order), ``grants`` the [L] removeMin counts.  CPU
+    add batches (any order, or key-sorted with a prefix mask under
+    ``adds_sorted=True``, which skips the presort), ``grants`` the [L]
+    removeMin counts.  CPU
     tensors run :func:`fused_tick_mid_plain`; CUDA tensors launch the
     kernel, and anything else raises."""
     dev = lk.device
     if dev.type == "cpu":
-        return fused_tick_mid_plain(cfg, lanes, lk, lv, lm, grants)
+        return fused_tick_mid_plain(cfg, lanes, lk, lv, lm, grants,
+                                    adds_sorted=adds_sorted)
     if dev.type != "cuda":
         raise ValueError(f"fused_tick_mid runs on cuda or cpu, got {dev}")
-    inputs = kernel_inputs(cfg, lanes, lk, lv, lm, grants)
+    inputs = kernel_inputs(cfg, lanes, lk, lv, lm, grants, adds_sorted)
     outs, ws = kernel_buffers(cfg, lk.shape[0], dev)
     launch(cfg, inputs, outs, ws)
     fused_tick_mid.launches += 1

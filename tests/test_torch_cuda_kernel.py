@@ -14,14 +14,17 @@ padding, negatives and duplicates; K1 and K4 on ties, INF padding, -0.0
 and rows past one CTA's shared memory; and the kernel ops' "cuda"
 compositions on the card against the same compositions on the CPU.
 Every output must equal its plain version's bit for bit, and each wrapper
-call counts one launch.
+call counts one launch.  Last, the sharded engine at L=2 and L=4: the
+"cuda" engine equals its "torch" twin bit for bit on every tick, with one
+lane-tick launch and one router sort (K2) per tick that does lane work.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import PQConfig, pqueue
+from repro_torch.core import PQConfig, pqueue, sharded
+from repro_torch.core.factory import EngineSpec, make_engine
 from repro_torch.kernels import bitonic, lane_tick, merge_consume
 from repro_torch.kernels import ops, radix_select
 
@@ -232,3 +235,54 @@ def test_kernel_compositions_match_the_cpu():
     torch.cuda.synchronize()
     for g, w in zip(dev[5] + dev[6], host[5] + host[6]):
         assert _same_bits(g.cpu(), w)
+
+
+def _mixed_batches(rng, ticks):
+    """Ticks with adds and removes both; some keys fall below the union
+    minimum, so the pre-route pass pairs them."""
+    ak = np.full((ticks, W), np.inf, np.float32)
+    av = np.full((ticks, W), -1, np.int32)
+    mask = np.zeros((ticks, W), bool)
+    rm = rng.integers(8, W + 1, ticks).astype(np.int32)
+    for t in range(ticks):
+        n = int(rng.integers(8, W + 1))
+        ak[t, :n] = np.round(rng.uniform(-200, 1000, n), 3)
+        av[t, :n] = np.arange(n)
+        mask[t, :n] = True
+    return [torch.from_numpy(x).cuda() for x in (ak, av, mask, rm)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_sharded_engine_matches_torch_twin(lanes):
+    _need_gpu()
+    spec = dict(engine="sharded", width=W, lanes=lanes)
+    base = {f: getattr(CFG, f) for f in CFG.__dataclass_fields__
+            if f != "backend"}
+    eng_c = make_engine(EngineSpec(base=PQConfig(backend="cuda", **base),
+                                   **spec))
+    eng_t = make_engine(EngineSpec(base=PQConfig(backend="torch", **base),
+                                   **spec))
+    s_c, s_t = eng_c.init(seed=9), eng_t.init(seed=9)
+    rows = [torch.cat(xs) for xs in zip(
+        _repair_batches(np.random.default_rng(51), 48),
+        _mixed_batches(np.random.default_rng(52), 24))]
+    k3 = lane_tick.fused_tick_mid.launches
+    k2 = bitonic.bitonic_sort_kvf.launches
+    for t in range(rows[0].shape[0]):
+        # a tick with lane work moves the lanes' add, remove or chopHead
+        # counters; one without only counts a quiet tick
+        before = sharded.lane_work_marks(s_c)
+        s_c, r_c = eng_c.tick(s_c, *(x[t] for x in rows))
+        work = int(sharded.lane_work_marks(s_c) > before)
+        s_t, r_t = eng_t.tick(s_t, *(x[t] for x in rows))
+        for i, (g, w) in enumerate(zip(pqueue.tree_leaves((s_c, r_c)),
+                                       pqueue.tree_leaves((s_t, r_t)))):
+            assert _same_bits(g, w), f"tick {t} leaf {i}"
+        k3, k2 = k3 + work, k2 + work
+        assert lane_tick.fused_tick_mid.launches == k3, t
+        assert bitonic.bitonic_sort_kvf.launches == k2, t
+    st = s_c.lanes.stats
+    for name in ("add_par", "n_rebalance", "n_movehead", "n_chophead"):
+        assert int(getattr(st, name).sum()) > 0, name
+    assert int(s_c.n_preroute_elim) > 0

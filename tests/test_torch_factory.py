@@ -109,11 +109,11 @@ def test_cuda_backend_on_cpu_raises():
                     device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["sharded", "adaptive", "nope"])
+@pytest.mark.parametrize("kind", ["dist", "adaptive", "nope"])
 def test_unported_or_unknown_engine_raises(kind):
-    with pytest.raises(ValueError, match=r"\['pqe'\]"):
+    with pytest.raises(ValueError, match=r"\['pqe', 'sharded'\]"):
         make_engine(EngineSpec(engine=kind), device="cpu")
-    assert engine_kinds() == ["pqe"]
+    assert engine_kinds() == ["pqe", "sharded"]
 
 
 def test_unknown_backend_raises():
@@ -153,7 +153,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels, repro_torch.kernels.lane_tick, "
             "repro_torch.kernels.build, repro_torch.kernels.bitonic, "
             "repro_torch.kernels.merge_consume, "
-            "repro_torch.kernels.radix_select, repro_torch.kernels.ref\n"
+            "repro_torch.kernels.radix_select, repro_torch.kernels.ref, "
+            "repro_torch.core.sharded, repro_torch.core.elimination, "
+            "repro_torch.core.factory, repro_torch.core.interop\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

@@ -124,3 +124,33 @@ def test_wrapper_rejects_other_devices():
              torch.zeros((1,), dtype=torch.int32, device="meta")]
     with pytest.raises(ValueError, match="cuda or cpu"):
         tlt.fused_tick_mid(cfg, lanes, *batch)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_adds_sorted_skips_presort_with_same_bits(lanes):
+    """On a batch that is already stably key-sorted with a prefix mask
+    (what the sharded router hands over), ``adds_sorted=True`` skips the
+    presort and gives the same bits as presorting it again."""
+    cfg = _port_cfg(BASE, "cuda")
+    streams = [list(_dup_stream(np.random.default_rng(41 + i), TICKS))
+               for i in range(lanes)]
+    states = [tpq.init(cfg, "cpu") for _ in range(lanes)]
+    for t in range(TICKS):
+        lk, lv, lm, grants = (torch.from_numpy(np.array(jnp.stack(xs)))
+                              for xs in zip(*(s[t] for s in streams)))
+        sk, sv, sm = tlt._presort(lk, lv, lm)
+        stacked = [torch.stack(xs) for xs in zip(*map(tpq.tree_leaves,
+                                                      states))]
+        n = len(tpq.PQState._fields) - 1
+        lanes_in = tpq.PQState(*stacked[:n], stats=tpq.PQStats(*stacked[n:]))
+        a = tlt.fused_tick_mid(cfg, lanes_in, sk, sv, sm, grants)
+        b = tlt.fused_tick_mid(cfg, lanes_in, sk, sv, sm, grants,
+                               adds_sorted=True)
+        for i, (x, y) in enumerate(zip(tpq.tree_leaves(a),
+                                       tpq.tree_leaves(b))):
+            assert x.dtype == y.dtype
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), (t, i)
+        states = [tpq.tick(cfg, s, sk[i], sv[i], sm[i], grants[i])[0]
+                  for i, s in enumerate(states)]
