@@ -10,11 +10,12 @@ Phases, each fatal on failure:
    build/ (one nvcc per source, all at once);
 3. kernel vs plain version — the lane-tick kernel against its plain
    PyTorch version on the card, bit for bit, on states driven through
-   real ticks, at eleven geometry/lane settings (the repair-forcing
+   real ticks, at thirteen geometry/lane settings (the repair-forcing
    geometry also at a head tile width of 64 slots, so merge windows
    cross tile edges, and on a stream whose keys tie; the lane geometries
-   of the two sharded cells of phase 7 at L=8); both timed on the device
-   clock, with the host-clocked call time beside it;
+   of the two sharded cells of phase 7 at L=8; the adaptive engine's
+   fold-headroom lane geometry of phase 8c at L=8 and L=1); both timed
+   on the device clock, with the host-clocked call time beside it;
 4. main path at w4096 — ``make_engine(EngineSpec(engine="pqe",
    width=4096))`` (the "cuda" kernel backend) beside a "torch" twin: warm
    2000 keys, 200 ticks at p_add 0.5 with DES keys, quiet ticks until
@@ -43,7 +44,30 @@ Phases, each fatal on failure:
    nothing dropped by a lane or the router, every served key within
    ``relax_bound`` smallest of the pre-tick contents and the tick's
    adds.  The lane-tick kernel (K3, grid L=8) and the router's row sort
-   (K2) launch once on each tick that does lane work; K1 and K4 never.
+   (K2) launch once on each tick that does lane work; K1 and K4 never;
+8. the rest of the single-device engines —
+   a. ``fcskiplist`` and ``lfskiplist`` at w4096 on phase 4's stream,
+      every tick bit-equal to the same engine on the CPU and served keys
+      equal to the heapq oracle's; no kernel launches;
+   b. ``adaptive`` (w4096, L=8, window 8) beside its "torch" twin over
+      2000 keys warm and four 64-tick phases (p_add 0.5 uniform, 0.5
+      DES, 0.3 DES, 0.5 uniform): every tick the results, state, plan and
+      controller state bit-equal, the exact multiset conserved across
+      engine switches, no drops, the ``relax_bound`` envelope held; at
+      least two switches; the plan trace per window, µs per tick by plan
+      and for the switching ticks, and what the fixed pqe and sharded
+      engines cost in each phase;
+   c. the same engine with ``min_lanes=1`` and the sharded candidate
+      only, which must fold to L=1 in the uniform phases and unfold to
+      L=8 in the DES phases; the same checks, except that keys the
+      folded lane sheds (the reference's geometry does, and so must the
+      port) are allowed when the lanes' own counters count them exactly;
+   d. ``repro_torch.quality``: ``measure_engine`` of pqe (exact) and of
+      sharded L=8 (within the envelope) at w4096, and a ``tune_lanes``
+      walk with its trace.
+   K3 and K2 launch in 8b and 8c exactly as the plan trace predicts
+   (pqe ticks, re-insertion ticks, sharded lane-work ticks); K1 and K4
+   never.
 
 The last lines are a JSON record of the kernels and the run's status
 line.  Imports nothing of JAX or of the JAX package.
@@ -85,6 +109,17 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
+
+
+def leaves_equal(pq, a, b, label, t):
+    """Every tensor leaf of ``a`` bit-equal to ``b``'s (``b`` may lie on
+    another device)."""
+    la, lb = pq.tree_leaves(a), pq.tree_leaves(b)
+    if len(la) != len(lb):
+        fail(f"{label} tick {t}: {len(la)} leaves against {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if not same_bits(x.to(y.device), y):
+            fail(f"{label} tick {t}: leaf {i} differs between the twins")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -604,6 +639,8 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
         "PRODUCTION bucket rows [1024, 1024]": (pk, pv),
         "sharded L=8 lane batch [8, 512]": (wk_add.reshape(8, 512),
                                             wv_add.reshape(8, 512)),
+        "w4096 add batches [8, 4096]": tuple(
+            x[:8].clone() for x in w4096["rows"][:2]),
         "sharded L=8 lane batch [8, 128]": (
             prod["rows"][0][:1].reshape(8, 128).clone(),
             prod["rows"][1][:1].reshape(8, 128).clone()),
@@ -776,6 +813,19 @@ def packed_pairs(ops, keys, vals):
     return (u << 32) | (vals.long() & 0xFFFFFFFF)
 
 
+def sub_multiset(small, big):
+    """Whether the sorted int64 array ``small`` is a sub-multiset of the
+    sorted ``big``."""
+    if small.numel() == big.numel():
+        return torch.equal(small, big)
+    if small.numel() == 0:
+        return True
+    ub, cb = torch.unique_consecutive(big, return_counts=True)
+    us, cs = torch.unique_consecutive(small, return_counts=True)
+    idx = torch.searchsorted(ub, us).clamp(max=ub.numel() - 1)
+    return bool(((ub[idx] == us) & (cb[idx] >= cs)).all())
+
+
 class Conservation:
     """The exact multiset of a sharded queue, checked every tick:
     residents after the tick plus the served pairs equal residents before
@@ -789,7 +839,11 @@ class Conservation:
         self.keys = torch.zeros((0,), dtype=torch.float32, device="cuda")
         self.worst = (0, 0)      # (largest served rank, its tick's c)
 
-    def tick(self, label, t, state, result, ak, av, mask, rm):
+    def tick(self, label, t, state, result, ak, av, mask, rm, dropped=0):
+        """Check one tick.  ``dropped`` is the count of keys the queue's
+        own counters say it shed this tick: then residents after plus the
+        served pairs must be residents before plus the adds less exactly
+        that many pairs, and nothing else."""
         keys, vals, live = self.eng.resident(state)
         keys, vals = keys[live], vals[live]
         pairs = torch.sort(packed_pairs(self.ops, keys, vals)).values
@@ -799,9 +853,11 @@ class Conservation:
             [pairs, packed_pairs(self.ops, served_k, served_v)])).values
         before = torch.sort(torch.cat(
             [self.pairs, packed_pairs(self.ops, ak[mask], av[mask])])).values
-        if not torch.equal(after, before):
+        if before.numel() - after.numel() != dropped or not sub_multiset(
+                after, before):
             fail(f"{label} tick {t}: residents + served != residents before "
-                 f"+ adds ({after.numel()} vs {before.numel()} pairs)")
+                 f"+ adds less the {dropped} counted drops "
+                 f"({after.numel()} vs {before.numel()} pairs)")
         union = torch.sort(torch.cat([self.keys, ak[mask]])).values
         c = self.eng.relax_bound(int(rm))
         if served_k.numel():
@@ -831,11 +887,7 @@ def drive_sharded(label, engines, states, rows, cons, pq, shq, stop=None):
         marks, before = shq.lane_work_marks(s_c), marks
         work += marks > before
         s_t, r_t = eng_t.tick(s_t, ak[t], av[t], mask[t], rm[t])
-        for i, (a, b) in enumerate(zip(pq.tree_leaves((s_c, r_c)),
-                                       pq.tree_leaves((s_t, r_t)))):
-            if not same_bits(a, b):
-                fail(f"{label} tick {t}: leaf {i} of (state, result) "
-                     "differs between the cuda and torch backends")
+        leaves_equal(pq, (s_c, r_c), (s_t, r_t), label, t)
         if int(s_c.lanes.stats.n_dropped.sum()) or int(s_c.n_router_dropped):
             fail(f"{label} tick {t}: the queue dropped keys")
         cons.tick(label, t, s_c, r_c, ak[t], av[t], mask[t], rm[t])
@@ -935,6 +987,387 @@ def sharded_path(args, factory, config, pq, shq, lt, ops, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the baselines, the adaptive engine and the quality layer
+# ---------------------------------------------------------------------------
+
+def baselines_path(args, factory, pq, RefPQ, counters):
+    """8a.  Each baseline at w4096 on the card beside the same engine on
+    the CPU, over phase 4's stream (2000 keys warm, 200 ticks at p_add 0.5
+    with DES keys): every tick, results and state bit-equal between the
+    two and served keys equal to the heapq oracle's.  They run no kernel.
+    Then µs per tick of the card's engine, two runs, and a profiled
+    pass."""
+    rng = np.random.default_rng(args.seed)
+    warm = rng.uniform(0, KEY_HI, WARM_ELEMENTS).astype(np.float32)
+    mix, rms, _ = mix_keys(rng, 4096, 0.5, 200, "des")
+    rows = to_device(batch_rows(4096, [warm] + mix, [0] + rms))
+    host = tuple(x.cpu() for x in rows)
+    out = {}
+    for kind in ("fcskiplist", "lfskiplist"):
+        spec = factory.EngineSpec(engine=kind, width=4096)
+        eng, twin = factory.make_engine(spec), factory.make_engine(
+            spec, device="cpu")
+        if eng.device.type != "cuda":
+            fail(f"{kind}: the default engine is not on the card")
+        start = eng.init(seed=0)
+        s, s_h, ref = start, twin.init(seed=0), RefPQ()
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        for t in range(rows[0].shape[0]):
+            s, r = eng.tick(s, *(x[t] for x in rows))
+            s_h, r_h = twin.tick(s_h, *(x[t] for x in host))
+            leaves_equal(pq, (s, r[:3]), (s_h, r_h[:3]), kind, t)
+            keys = host[0][t][host[2][t]].numpy()
+            exp = np.sort(np.array([k for k, _ in ref.tick(
+                keys.tolist(), range(len(keys)), int(host[3][t]))
+                if k != np.inf], np.float32))
+            if not np.array_equal(np.sort(r_h.rm_keys[r_h.rm_served]
+                                          .numpy()), exp):
+                fail(f"{kind} tick {t}: served keys differ from the oracle")
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in counters.items()}
+        if any(launches.values()):
+            fail(f"{kind}: the baseline launched a kernel: {launches}")
+        us = [time_ticks(eng, start, rows), time_ticks(eng, start, rows)]
+        out[kind] = dict(cell="baselines_w4096_p50_des", ticks=len(mix) + 1,
+                         resident=int(eng.size(s)), launches=launches,
+                         us_per_tick_cuda=us, device=card(),
+                         profile=kernel_share(eng, start, rows))
+        print(f"baselines {json.dumps(out[kind])}", flush=True)
+    return out
+
+
+def adaptive_rows(rng, width):
+    """2000 keys warm, then four phases of 64 ticks: p_add 0.5 uniform
+    (balanced, dispersed), 0.5 DES (balanced, clustered), 0.3 DES
+    (skewed), 0.5 uniform.  Returns host (numpy) rows and each tick's
+    phase (0 for the warm tick)."""
+    keys = [rng.uniform(0, KEY_HI, WARM_ELEMENTS).astype(np.float32)]
+    rms, lo = [0], 0.0
+    for p_add, dist in ((0.5, "uniform"), (0.5, "des"), (0.3, "des"),
+                        (0.5, "uniform")):
+        k, r, lo = mix_keys(rng, width, p_add, 64, dist, lo)
+        keys, rms = keys + k, rms + r
+    phase = [0] + [p for p in (1, 2, 3, 4) for _ in range(64)]
+    return batch_rows(width, keys, rms), phase
+
+
+class PlanLaunches:
+    """The K3 and K2 launches of an adaptive engine, measured tick by
+    tick and held to what its plan trace predicts.
+
+    The prediction: a pqe tick launches K3 once (grid 1); a sharded tick
+    with lane work (``sharded.lane_work_marks`` grows) K3 once (grid L)
+    and K2 once; each re-insertion tick of an engine switch or a fold is
+    a pqe tick or a sharded tick with adds.  The measurement: the
+    wrappers' counters read before each tick, on entry to and exit from
+    the engine's ``_window_boundary`` (wrapped here, which also catches
+    the state between the chunk and the boundary) and after the tick.
+    The chunk's launches are charged to the plan it ran under, the
+    boundary's to the plan it switched to; each part must equal its
+    prediction, or the run fails at that tick.  Tables are keyed by
+    (kind, lanes): ``k3`` / ``k2`` measured, ``want_k3`` / ``want_k2``
+    predicted."""
+
+    def __init__(self, cell, eng, shq, counters):
+        self.cell, self.eng, self.shq = cell, eng, shq
+        self.k3_w = counters["fused_tick_mid"]
+        self.k2_w = counters["bitonic_sort_kvf"]
+        self.k3, self.k2, self.want_k3, self.want_k2 = {}, {}, {}, {}
+        self.t, self.mid, self.entry, self.exit = None, None, None, None
+        boundary = eng._window_boundary
+
+        def caught(state):
+            self.mid, self.entry = state, self._read()
+            new = boundary(state)
+            self.exit = self._read()
+            self._charge("re-insertion", new, self._reinserted(state, new),
+                         self.entry, self.exit)
+            return new
+
+        eng._window_boundary = caught
+
+    def _read(self):
+        return self.k3_w.launches, self.k2_w.launches
+
+    def _charge(self, part, plan, n, before, after):
+        """Charge ``after - before`` to ``plan``'s key; fail unless it
+        is ``n`` K3 launches and, for a sharded plan, ``n`` K2 sorts."""
+        key = (plan.kind, 1 if plan.kind == "pqe" else plan.lanes)
+        got = (after[0] - before[0], after[1] - before[1])
+        want = (n, n if plan.kind == "sharded" else 0)
+        if got != want:
+            fail(f"{self.cell} tick {self.t}: the {part} under "
+                 f"{key[0]}/L{key[1]} launched K3 {got[0]} and K2 {got[1]} "
+                 f"times, the plan trace predicts {want[0]} and {want[1]}")
+        tables = [(self.k3, self.want_k3, 0)]
+        if plan.kind == "sharded":
+            tables.append((self.k2, self.want_k2, 1))
+        for table, wtable, i in tables:
+            table[key] = table.get(key, 0) + got[i]
+            wtable[key] = wtable.get(key, 0) + want[i]
+
+    def tick(self, t, state, *batch):
+        self.t, self.mid, self.entry, self.exit = t, None, None, None
+        start = self._read()
+        new, res = self.eng.tick(state, *batch)
+        end = self._read()
+        mid = new if self.mid is None else self.mid
+        chunk_end = end if self.entry is None else self.entry
+        if self.exit is not None and end != self.exit:
+            fail(f"{self.cell} tick {t}: kernels launched after the window "
+                 "boundary")
+        if state.kind == "pqe":
+            n = 1
+        else:
+            n = int(self.shq.lane_work_marks(mid.inner)
+                    > self.shq.lane_work_marks(state.inner))
+        self._charge("tick", state, n, start, chunk_end)
+        return new, res
+
+    def _reinserted(self, mid, new):
+        """Re-insertion ticks the boundary from ``mid`` to ``new`` runs."""
+        if new.kind != mid.kind:
+            n = int(self.eng.size(mid))
+            w = self.eng.base.a_max if new.kind == "pqe" else self.eng.width
+        elif new.kind == "sharded" and new.lanes < mid.lanes:
+            n = int(self.shq.lane_sizes(mid.inner)[new.lanes:].sum())
+            w = self.eng.width
+        else:
+            return 0
+        return -(-n // w)
+
+    def table(self):
+        """{"kind/Llanes": {"k3", "k2", "want_k3", "want_k2"}}."""
+        keys = sorted(self.want_k3)
+        return {f"{k}/L{n}": dict(k3=self.k3.get((k, n), 0),
+                                  k2=self.k2.get((k, n), 0),
+                                  want_k3=self.want_k3.get((k, n), 0),
+                                  want_k2=self.want_k2.get((k, n), 0))
+                for k, n in keys}
+
+
+def inner_drops(state):
+    """Keys the adaptive engine's live structure has counted as shed."""
+    inner = state.inner
+    if state.kind == "pqe":
+        return int(inner.stats.n_dropped)
+    return int(inner.lanes.stats.n_dropped.sum()) + int(
+        inner.n_router_dropped)
+
+
+def tick_costs(eng, rows, phase):
+    """One pass of ``eng`` from a fresh state over the rows, each tick
+    timed on the host clock (ending in a synchronise) and by CUDA events
+    around it; ticks grouped by the plan in force, a tick whose window
+    boundary changed the plan counted apart as a switch.  Returns
+    {group: dict(ticks, host_us, event_us)}."""
+    def plan(state):
+        return (state.kind if state.kind == "pqe"
+                else f"sharded L={state.lanes}")
+
+    state = eng.init(seed=0)
+    groups = {}
+    events = []
+    for t in range(rows[0].shape[0]):
+        before = plan(state)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        state, _ = eng.tick(state, *(x[t] for x in rows))
+        e1.record()
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) * 1e6
+        after = plan(state)
+        group = (f"switch {before} -> {after}" if after != before
+                 else f"{before} phase {phase[t]}")
+        events.append((group, host_us, e0, e1))
+    for group, host_us, e0, e1 in events:
+        g = groups.setdefault(group, dict(ticks=0, host_us=0.0,
+                                          event_us=0.0))
+        g["ticks"] += 1
+        g["host_us"] += host_us
+        g["event_us"] += e0.elapsed_time(e1) * 1e3
+    for g in groups.values():
+        g["host_us"] /= g["ticks"]
+        g["event_us"] /= g["ticks"]
+    return groups
+
+
+def fixed_engine_costs(factory, rows, phase):
+    """What each choice costs per regime: the fixed pqe and sharded L=8
+    engines (cuda) over the same rows, µs per tick by phase on the host
+    clock (synchronised per tick), in turns pqe, sharded, sharded, pqe."""
+    out = {}
+    for kind in ("pqe", "sharded", "sharded", "pqe"):
+        eng = factory.make_engine(factory.EngineSpec(engine=kind, width=4096,
+                                                     lanes=8))
+        state = eng.init(seed=0)
+        spent = {}
+        for t in range(rows[0].shape[0]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = eng.tick(state, *(x[t] for x in rows))
+            torch.cuda.synchronize()
+            spent.setdefault(phase[t], []).append(
+                (time.perf_counter() - t0) * 1e6)
+        for p, us in spent.items():
+            if p:
+                out.setdefault(f"{kind} phase {p}", []).append(
+                    sum(us) / len(us))
+    return out
+
+
+def adaptive_path(cell, args, factory, adaptive, pq, shq, ops, counters,
+                  min_lanes=None, engines=("pqe", "sharded")):
+    """8b / 8c.  The adaptive engine at w4096, L=8, window 8 beside its
+    "torch" twin on the card, over ``adaptive_rows``.  Every tick:
+    results, inner state, plan and controller state bit-equal between
+    the twins; the exact multiset conserved across switches and folds,
+    less the keys the structure's own counters say it shed; no router
+    drop; every served key within ``relax_bound(r)`` smallest of the
+    union.  K3 and K2 launch as the plan trace predicts, tick by tick
+    and plan by plan (``PlanLaunches``), K1 and K4 never.  Then the timings (``tick_costs``, a profiled pass and, for
+    8b, ``fixed_engine_costs``).  Returns the record (the plan trace per
+    window too)."""
+    ctl = adaptive.ControllerConfig(window=8, engines=engines)
+    spec = dict(engine="adaptive", width=4096, lanes=8, min_lanes=min_lanes,
+                controller=ctl)
+    eng_c = factory.make_engine(factory.EngineSpec(**spec))
+    eng_t = factory.make_engine(factory.EngineSpec(backend="torch", **spec))
+    if eng_c.base.backend != "cuda" or eng_c.device.type != "cuda":
+        fail(f"{cell}: the default adaptive engine is not cuda on the card")
+    rows, phase = adaptive_rows(np.random.default_rng(args.seed + 9), 4096)
+    rows = to_device(rows)
+    plan = PlanLaunches(cell, eng_c, shq, counters)
+    cons = Conservation(eng_c, ops)
+    s_c, s_t = eng_c.init(seed=0), eng_t.init(seed=0)
+    trace, dropped = [], 0
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    for t in range(rows[0].shape[0]):
+        batch = [x[t] for x in rows]
+        pre = s_c
+        s_c, r_c = plan.tick(t, s_c, *batch)
+        s_t, r_t = eng_t.tick(s_t, *batch)
+        host_c = (s_c.kind, s_c.lanes, s_c.preroute, s_c.tick_count, s_c.ctl)
+        host_t = (s_t.kind, s_t.lanes, s_t.preroute, s_t.tick_count, s_t.ctl)
+        if host_c != host_t:
+            fail(f"{cell} tick {t}: plan or controller state differs "
+                 f"between the twins: {host_c[:4]} vs {host_t[:4]}")
+        leaves_equal(pq, (s_c.inner, r_c), (s_t.inner, r_t), cell, t)
+        # sheds are counted by the live structure; a tick that switched
+        # engines starts a fresh structure, which must not shed at all
+        shed = inner_drops(s_c) - (inner_drops(pre) if pre.kind == s_c.kind
+                                   else 0)
+        if s_c.kind == "sharded" and int(s_c.inner.n_router_dropped):
+            fail(f"{cell} tick {t}: the router dropped keys")
+        cons.tick(cell, t, s_c, r_c, *batch, dropped=shed)
+        dropped += shed
+        if s_c.tick_count % ctl.window == 0:
+            c = s_c.ctl
+            trace.append(dict(window=c.n_windows, tick=t, phase=phase[t],
+                              plan=[s_c.kind, s_c.lanes, s_c.preroute],
+                              balance_ema=c.balance_ema,
+                              disp_ema=c.disp_ema, hit_ema=c.hit_ema,
+                              n_switches=c.n_switches))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in counters.items()}
+    by_plan = plan.table()
+    del eng_c._window_boundary        # the timed passes below run unwatched
+    print(f"{cell} plan trace {json.dumps(trace)}", flush=True)
+    print(f"{cell}: ticks {rows[0].shape[0]}, switches "
+          f"{s_c.ctl.n_switches}, launches {launches}, measured and "
+          f"predicted by plan {json.dumps(by_plan)}, keys shed {dropped}, "
+          f"largest served rank (rank, c) {cons.worst}", flush=True)
+    # every launch of the run fell inside a tick the plan table charged
+    for wrapper, k in (("fused_tick_mid", "k3"), ("bitonic_sort_kvf", "k2")):
+        charged = sum(v[k] for v in by_plan.values())
+        if launches[wrapper] != charged:
+            fail(f"{cell}: {launches[wrapper]} {wrapper} launches, "
+                 f"{charged} of them within the engine's ticks")
+    if launches["merge_sorted_kvf"] or launches["radix_select_threshold"]:
+        fail(f"{cell}: the adaptive path launched K1 or K4: {launches}")
+    rec = dict(cell=cell, device=card(), ticks=int(rows[0].shape[0]),
+               n_switches=s_c.ctl.n_switches, launches=launches,
+               launches_by_plan=by_plan,
+               keys_shed=dropped, worst_rank=cons.worst, trace=trace,
+               tick_costs=tick_costs(eng_c, rows, phase),
+               profile=kernel_share(eng_c, eng_c.init(seed=0), rows))
+    if min_lanes is None:
+        rec["fixed_engine_costs"] = fixed_engine_costs(factory, rows, phase)
+    print(f"adaptive {json.dumps({k: v for k, v in rec.items() if k != 'trace'})}",
+          flush=True)
+    return rec
+
+
+def check_phased(rec):
+    """8b: at least two engine switches, and no key shed."""
+    if rec["n_switches"] < 2 or rec["keys_shed"]:
+        emas = [(w["window"], round(w["balance_ema"], 4),
+                 round(w["disp_ema"], 4), w["plan"][0]) for w in rec["trace"]]
+        fail(f"{rec['cell']}: {rec['n_switches']} engine switches, "
+             f"{rec['keys_shed']} keys shed; per-window (window, balance "
+             f"EMA, dispersion EMA, engine): {emas}")
+
+
+def check_fold(rec):
+    """8c: folds to L=1 in both uniform phases and unfolds to L=8 in the
+    DES phases."""
+    lanes = {p: [w["plan"][1] for w in rec["trace"] if w["phase"] == p]
+             for p in (1, 2, 3, 4)}
+    if not (1 in lanes[1] and 8 in lanes[2] + lanes[3] and 1 in lanes[4]):
+        fail(f"{rec['cell']}: the lanes did not fold to 1 in the uniform "
+             f"phases and unfold to 8 in the DES phases: {lanes}")
+
+
+#: the rank-error budget (rank_err_p99) phase 8d's tuner walk spends
+TUNE_BUDGET = 2048.0
+
+
+def quality_path(factory, quality, counters):
+    """8d.  ``measure_engine`` of pqe and of sharded L=8 at w4096 on the
+    tuner's probe stream from its warm set: pqe exact, sharded within
+    ``relax_bound(r) - r``; then ``tune_lanes`` at w4096, p_add 0.5."""
+    warm = quality.warm_keys()
+    probe = quality.probe_stream(4096, 0.5, 35)
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    out = {}
+    for kind in ("pqe", "sharded"):
+        eng = factory.make_engine(factory.EngineSpec(engine=kind, width=4096,
+                                                     lanes=8))
+        s = quality.measure_engine(eng, *probe, warm_keys=warm)
+        r = int(probe[3][0])
+        out[kind] = dict(summary=s, envelope=eng.relax_bound(r) - r)
+        if s["n_served"] == 0 or s["rank_err_max"] > out[kind]["envelope"]:
+            fail(f"quality {kind}: {s} outside the envelope "
+                 f"{out[kind]['envelope']}")
+        if kind == "pqe" and (s["rank_err_max"] or s["stale_max"]):
+            fail(f"quality pqe: the exact engine scored {s}")
+    tune = quality.tune_lanes(width=4096, p_add=0.5, budget=TUNE_BUDGET)
+    out["tune_lanes"] = dict(budget=tune.budget, metric=tune.metric,
+                             lanes=tune.lanes, value=tune.value,
+                             trace=[list(x) for x in tune.trace])
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in counters.items()}
+    if launches["merge_sorted_kvf"] or launches["radix_select_threshold"]:
+        fail(f"quality: launched K1 or K4: {launches}")
+    if not launches["fused_tick_mid"]:
+        fail("quality: the engines never launched the lane tick")
+    out["launches"] = launches
+    print(f"quality {json.dumps(out)}", flush=True)
+    print(f"tune_lanes trace (L, {tune.metric}, us per tick): "
+          f"{out['tune_lanes']['trace']} -> L={tune.lanes}", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -946,7 +1379,8 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import config, factory, pqueue as pq
+    from repro_torch import quality
+    from repro_torch.core import adaptive, config, factory, pqueue as pq
     from repro_torch.core import sharded as shq
     from repro_torch.core.ref_pq import RefPQ
     from repro_torch.kernels import bitonic, build, merge_consume
@@ -1028,6 +1462,15 @@ def main() -> None:
         records_k3[cell] = kernel_vs_plain(
             f"{cell}_L8", lane, mix_streams(8, lane.a_max, warm, 6, dist),
             warm, lt, pq)
+    # the adaptive engine's fold-headroom lane geometry (min_lanes=1) of
+    # phase 8c, at both lane counts it runs
+    fold_lane = factory.make_engine(factory.EngineSpec(
+        engine="sharded", width=4096, lanes=8, min_lanes=1,
+        backend="torch")).cfg.lane
+    for lanes in (8, 1):
+        records_k3[f"fold_L{lanes}"] = kernel_vs_plain(
+            f"adaptive_fold_L{lanes}", fold_lane,
+            mix_streams(lanes, fold_lane.a_max, 1, 6, "des"), 1, lt, pq)
 
     # 4-5. the main path through the engine API
     w4096_run = main_path_w4096(args, factory, pq, lt, RefPQ)
@@ -1055,6 +1498,20 @@ def main() -> None:
     sharded = sharded_path(args, factory, config, pq, shq, lt, ops,
                            dict(wrappers, fused_tick_mid=lt.fused_tick_mid))
     print(f"sharded path: {time.perf_counter() - t7:.1f} s", flush=True)
+
+    # 8. the baselines, the adaptive engine and the quality layer
+    t8 = time.perf_counter()
+    counters = dict(wrappers, fused_tick_mid=lt.fused_tick_mid)
+    baselines_path(args, factory, pq, RefPQ, counters)
+    phased = adaptive_path("adaptive_w4096_L8_phased", args, factory,
+                           adaptive, pq, shq, ops, counters)
+    check_phased(phased)
+    fold = adaptive_path("adaptive_w4096_L8_fold", args, factory, adaptive,
+                         pq, shq, ops, counters, min_lanes=1,
+                         engines=("sharded",))
+    check_fold(fold)
+    quality_path(factory, quality, counters)
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -1088,6 +1545,34 @@ def main() -> None:
             max_abs_err=records[k2]["max_abs_err"],
             **{k: records[k2][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}))
+    k2_512 = records["sort_kvf sharded L=8 lane batch [8, 512] uniform"]
+    k2_4096 = records["sort_kvf w4096 add batch [1, 4096] uniform"]
+    for cell, rec, k3_rows, k2_rows in (
+            ("adaptive_w4096_L8_phased", phased,
+             (("pqe/L1", "w4096"), ("sharded/L8", "sharded_w4096")),
+             (("sharded/L8", k2_512),)),
+            ("adaptive_w4096_L8_fold", fold,
+             (("sharded/L8", "fold_L8"), ("sharded/L1", "fold_L1")),
+             (("sharded/L8", k2_512), ("sharded/L1", k2_4096)))):
+        for plan, k3 in k3_rows:
+            r = records_k3[k3]
+            kernels.append(dict(
+                name=f"lane_tick[{cell} {plan}]", route="cuda",
+                source="src/repro_torch/kernels/csrc/lane_tick.cu",
+                replaces="src/repro/kernels/lane_tick.py:185",
+                launches=rec["launches_by_plan"][plan]["k3"],
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by="bytes", library_ms=None))
+        for plan, r in k2_rows:
+            kernels.append(dict(
+                name=f"bitonic_sort_kvf[router {cell} {plan}]", route="cuda",
+                source="src/repro_torch/kernels/csrc/bitonic.cu",
+                replaces="src/repro/kernels/bitonic.py:89",
+                launches=rec["launches_by_plan"][plan]["k2"],
+                max_abs_err=r["max_abs_err"],
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}))
     for kname, wrapper, src, replaces, label in (
             ("K1", "merge_sorted_kvf", "merge_consume.cu",
              "src/repro/kernels/merge_consume.py:119",

@@ -8,11 +8,14 @@ The same surface as the JAX package's ``core/factory.py``::
     state = eng.init(seed=0)
     state, res = eng.tick(state, keys, vals, mask, rm_count)
 
-The paper's combined queue (``"pqe"``) and the L-lane relaxed queue
-(``"sharded"``) are ported; any other kind raises ``ValueError`` naming
-the registered kinds.  Engines run on
-``device="cuda"`` unless the caller passes ``device="cpu"``; the
-``"cuda"`` kernel backend on a CPU device raises at construction.
+Every single-device kind of the reference is registered: the paper's
+combined queue (``"pqe"``), the L-lane relaxed queue (``"sharded"``), the
+workload controller that switches between them (``"adaptive"``) and the
+paper's two baselines (``"fcskiplist"``, ``"lfskiplist"``); any other
+kind (the mesh's ``"dist"`` and ``"elastic"``) raises ``ValueError``
+naming the registered kinds.  Engines run on ``device="cuda"`` unless
+the caller passes ``device="cpu"``; the ``"cuda"`` kernel backend on a
+CPU device raises at construction (the baselines read no backend).
 """
 
 from __future__ import annotations
@@ -65,8 +68,8 @@ class EngineSpec:
     # "cuda" | "torch"; None keeps the base config's backend
     backend: Optional[str] = None
 
-    # lane geometry (sharded); min_lanes is fold headroom: quotas sized
-    # so the queue can fold down to it
+    # lane geometry (sharded / adaptive); min_lanes is fold headroom:
+    # quotas sized so the queue can fold down to it
     lanes: int = 4
     min_lanes: Optional[int] = None
     slack: float = 1.0
@@ -79,8 +82,12 @@ class EngineSpec:
     halve_threshold: Optional[int] = None
     double_threshold: Optional[int] = None
 
-    # rank-error budget (sharded): clamp lanes so the analytic envelope
-    # relax_bound(W) - W fits it (None = unbudgeted)
+    # workload controller (adaptive): a
+    # repro_torch.core.adaptive.ControllerConfig or None for defaults
+    controller: Any = None
+
+    # rank-error budget (sharded / adaptive): clamp lanes so the analytic
+    # envelope relax_bound(W) - W fits it (None = unbudgeted)
     quality_budget: Optional[float] = None
 
 
@@ -257,3 +264,72 @@ def _build_sharded(spec: EngineSpec, *, device: torch.device) -> ShardedEngine:
     lanes = lanes_within_budget(spec, spec.lanes)
     return ShardedEngine(_sharded_cfg_of(spec, lanes, resolved_base(spec)),
                          device)
+
+
+class BaselineEngine:
+    """The paper's §4 baselines (FCPQ / ParallelPQ) behind the same
+    surface: enough protocol for a bench driver (no drain surface: they
+    exist to be measured, not managed)."""
+
+    def __init__(self, kind: str, cfg: PQConfig, impl, device: torch.device):
+        self.kind = kind
+        self.cfg = cfg
+        self.device = device
+        self._impl = impl
+
+    @property
+    def width(self) -> int:
+        return self.cfg.a_max
+
+    def init(self, *, seed: int = 0):
+        del seed
+        return self._impl.init(self.cfg, self.device)
+
+    def tick(self, state, add_keys, add_vals, add_mask, rm_count):
+        return self._impl.tick(self.cfg, state, add_keys, add_vals, add_mask,
+                               rm_count)
+
+    def tick_n(self, state, add_keys, add_vals, add_mask, rm_counts):
+        results = []
+        for t in range(add_keys.shape[0]):
+            state, res = self.tick(state, add_keys[t], add_vals[t],
+                                   add_mask[t], rm_counts[t])
+            results.append(res)
+        if not results:
+            return state, None
+        return state, pqueue.TickResult(
+            *(torch.stack(xs) for xs in zip(*(r[:3] for r in results))))
+
+    def stats(self, state):
+        return None
+
+    def resident(self, state):
+        raise NotImplementedError(f"{self.kind} keeps no drain surface")
+
+    def relax_bound(self, rm_count: int) -> int:
+        return int(rm_count)
+
+    def size(self, state):
+        return self._impl.size(state)
+
+
+@register("fcskiplist")
+def _build_fc(spec: EngineSpec, *, device: torch.device) -> BaselineEngine:
+    from repro_torch.core.baselines import FCPQ
+
+    return BaselineEngine("fcskiplist", resolved_base(spec), FCPQ, device)
+
+
+@register("lfskiplist")
+def _build_lf(spec: EngineSpec, *, device: torch.device) -> BaselineEngine:
+    from repro_torch.core.baselines import ParallelPQ
+
+    return BaselineEngine("lfskiplist", resolved_base(spec), ParallelPQ,
+                          device)
+
+
+@register("adaptive")
+def _build_adaptive(spec: EngineSpec, *, device: torch.device):
+    from repro_torch.core import adaptive   # deferred: adaptive imports us
+
+    return adaptive.AdaptiveEngine(spec, device)

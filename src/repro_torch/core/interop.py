@@ -4,7 +4,9 @@ A state crosses as its flat list of numpy leaves, in the order of
 ``jax.tree.leaves`` on the reference's ``PQState`` (the fields in order,
 then the 15 stats counters).  A sharded state crosses the same way,
 as every leaf of the reference's ``ShardedState`` but ``rng`` (the
-packages' router generators differ; the port's is seeded afresh).
+packages' router generators differ; the port's is seeded afresh).  The
+baselines' ``FCState`` and ``ParState`` cross as all their leaves, in
+field order.
 Nothing here imports JAX: the caller takes ``np.asarray`` of each
 reference leaf.
 """
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.core import pqueue
 from repro_torch.core import sharded as shq
+from repro_torch.core.baselines import FCPQ, FCState, ParallelPQ, ParState
 from repro_torch.core.config import PQConfig
 
 _N_FIELDS = len(pqueue.PQState._fields) - 1   # every field but stats
@@ -49,8 +52,9 @@ def _fill(want, leaves, device):
     return pqueue.tree_map(lambda _: next(it), want)
 
 
-def state_to_numpy(state: pqueue.PQState) -> List[np.ndarray]:
-    """The state's leaves as numpy arrays, in the reference's order."""
+def state_to_numpy(state) -> List[np.ndarray]:
+    """The state's leaves as numpy arrays, in the reference's order (a
+    ``PQState``, ``FCState`` or ``ParState``)."""
     return [x.detach().cpu().numpy() for x in pqueue.tree_leaves(state)]
 
 
@@ -78,3 +82,25 @@ def sharded_state_to_numpy(state: shq.ShardedState) -> List[np.ndarray]:
     """The state's leaves but ``rng`` as numpy arrays, in the reference's
     order."""
     return [x.detach().cpu().numpy() for x in _sharded_leaves(state)]
+
+
+def _baseline_from_numpy(want, leaves, device):
+    leaves = list(leaves)
+    n = len(pqueue.tree_leaves(want))
+    if len(leaves) != n:
+        raise ValueError(f"expected {n} leaves, got {len(leaves)}")
+    return _fill(want, leaves, device)
+
+
+def fc_state_from_numpy(cfg: PQConfig, leaves: Sequence[np.ndarray],
+                        device="cuda") -> FCState:
+    """The port's FCState (flat-combining baseline) from the reference's
+    numpy leaves."""
+    return _baseline_from_numpy(FCPQ.init(cfg, "cpu"), leaves, device)
+
+
+def par_state_from_numpy(cfg: PQConfig, leaves: Sequence[np.ndarray],
+                         device="cuda") -> ParState:
+    """The port's ParState (parallel baseline) from the reference's numpy
+    leaves."""
+    return _baseline_from_numpy(ParallelPQ.init(cfg, "cpu"), leaves, device)

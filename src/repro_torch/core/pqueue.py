@@ -96,8 +96,8 @@ class TickResult(NamedTuple):
     rm_vals: torch.Tensor       # [r_max] i32; EMPTY_VAL where unserved
     rm_served: torch.Tensor     # [r_max] bool
     # which passes this tick needed: [5] i32 (combine, scatter,
-    # rebalance, moveHead, chopHead)
-    repairs: torch.Tensor
+    # rebalance, moveHead, chopHead); empty for the baselines' ticks
+    repairs: torch.Tensor = ()
 
 
 def tree_map(fn, tree):
@@ -145,6 +145,15 @@ def init(cfg: PQConfig, device="cuda") -> PQState:
 # ---------------------------------------------------------------------------
 # small vectorized helpers
 # ---------------------------------------------------------------------------
+
+def _sort_kv(keys, vals):
+    """Co-sort an [n] batch by key as the reference's ``jnp.argsort``
+    does: a stable float sort in which -0.0 ties with 0.0 (slot order).
+    The zeros are made one before sorting, so no device's sort can order
+    them apart."""
+    order = torch.sort(torch.where(keys == 0, 0.0, keys), stable=True).indices
+    return keys[order], vals[order]
+
 
 def _shift_left(arr, n, fill):
     """arr shifted left by n along the last axis, `fill` on the right;
@@ -250,6 +259,39 @@ def _redistribute(cfg: PQConfig, flat_k, flat_v, total):
                    kept.to(_I32)), dropped.to(_I32)
 
 
+def scatter_parallel(cfg: PQConfig, par: ParPart, keys, vals):
+    """SL::addPar(): disjoint-access parallel insert of an unsorted [n]
+    key batch (the parallel baseline's add path).
+
+    Fast path: group the batch by bucket with a stable sort of the
+    splitter routes' bucket ids, then :func:`_scatter_fast`'s
+    segment-append (its splitter bounds cut any bucket-grouped order
+    where the bucket ids do).  On bucket overflow, a host branch takes
+    the rebalance instead: the per-bucket sorted runs rank-merged with
+    the sorted batch, then redistributed.  Invalid entries are INF keys;
+    they are dropped.  Returns (new_par, n_rebalance, n_dropped)."""
+    nb = cfg.n_buckets
+    dev = keys.device
+    valid = keys < INF
+
+    bidx = (kops.searchsorted_last(par.splitters, keys, side="right") - 1
+            ).clamp(0, nb - 1)
+    bidx = torch.where(valid, bidx, nb)      # invalid -> past the last bucket
+    order = torch.sort(bidx, stable=True).indices
+    appended, overflow = _scatter_fast(cfg, par, keys[order], vals[order])
+    if not bool(overflow):
+        zero = torch.zeros((), dtype=_I32, device=dev)
+        return appended, zero, zero
+
+    fk, fv = flatten_parallel(cfg, par)
+    ck, cv = _sort_kv(torch.where(valid, keys, INF),
+                      torch.where(valid, vals, EMPTY_VAL))
+    allk, allv = rank_merge_kv(fk, fv, ck, cv)
+    total = par.par_count + valid.sum(dtype=_I32)
+    newpar, dropped = _redistribute(cfg, allk, allv, total)
+    return newpar, torch.ones((), dtype=_I32, device=dev), dropped
+
+
 # ---------------------------------------------------------------------------
 # the tick: elimination -> combining -> parallel adds -> moveHead/chopHead
 # (an unconditional head plus separable passes whose predicates ride the
@@ -301,9 +343,11 @@ class TickMid(NamedTuple):
 
 
 def _scatter_fast(cfg: PQConfig, par: ParPart, keys, vals):
-    """SL::addPar() fast path: segment-append a sorted batch along the
-    splitter routes.  Returns (appended_par, overflow); when `overflow`
-    the append is wrong and the caller discards it."""
+    """SL::addPar() fast path: segment-append a batch along the splitter
+    routes.  The batch must be grouped by bucket: sorted (the tick's
+    pend batch) or stably ordered by bucket id (:func:`scatter_parallel`),
+    with its INF keys last.  Returns (appended_par, overflow); when
+    `overflow` the append is wrong and the caller discards it."""
     nb, bc = cfg.n_buckets, cfg.bucket_cap
     size = keys.shape[-1]
     lead = keys.shape[:-1]

@@ -14,9 +14,14 @@ padding, negatives and duplicates; K1 and K4 on ties, INF padding, -0.0
 and rows past one CTA's shared memory; and the kernel ops' "cuda"
 compositions on the card against the same compositions on the CPU.
 Every output must equal its plain version's bit for bit, and each wrapper
-call counts one launch.  Last, the sharded engine at L=2 and L=4: the
+call counts one launch.  K3 also at the lane geometry of the adaptive
+engine's fold headroom (``width=4096, lanes=8, min_lanes=1``: a_max 4096,
+seq_cap 8194, 64x16 buckets) at L=8 and L=1, and K2 at that geometry's
+router rows, [8, 4096] and [1, 4096].  Last, the sharded engine at L=2
+and L=4 and the adaptive engine over a stream that switches engines: the
 "cuda" engine equals its "torch" twin bit for bit on every tick, with one
-lane-tick launch and one router sort (K2) per tick that does lane work.
+lane-tick launch per pqe tick and one lane-tick launch and one router
+sort (K2) per sharded tick that does lane work.
 """
 
 import numpy as np
@@ -114,6 +119,64 @@ def _need_gpu():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
 
 
+def _fold_lane_cfg():
+    """The lane config of the adaptive engine at w4096, L=8, min_lanes=1
+    (plain backend: the test calls the kernel itself)."""
+    return make_engine(EngineSpec(engine="sharded", width=4096, lanes=8,
+                                  min_lanes=1, backend="torch"),
+                       device="cpu").cfg.lane
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_cuda_kernel_at_fold_headroom_geometry(lanes):
+    """K3 against its plain version at the fold-headroom lane geometry,
+    each lane warmed with 2000 uniform keys and then fed DES mix ticks
+    (2048 adds, 2048 removes) after a warm tick."""
+    _need_gpu()
+    cfg = _fold_lane_cfg()
+    assert (cfg.a_max, cfg.seq_cap, cfg.n_buckets, cfg.bucket_cap) == \
+        (4096, 8194, 64, 16)
+    w, ticks = cfg.a_max, 6
+    streams = []
+    for i in range(lanes):
+        rng = np.random.default_rng(61 + i)
+        ak = np.full((ticks, w), np.inf, np.float32)
+        mask = np.zeros((ticks, w), bool)
+        rm = np.full(ticks, w // 2, np.int32)
+        ak[0, :2000], mask[0, :2000], rm[0] = \
+            rng.uniform(0, 1e5, 2000), True, 0
+        lo = 0.0
+        for t in range(1, ticks):
+            lo += (w // 2) * 50.0
+            ak[t, :w // 2] = lo + rng.exponential(400.0, w // 2)
+            mask[t, :w // 2] = True
+        av = np.tile(np.arange(w, dtype=np.int32), (ticks, 1))
+        streams.append([torch.from_numpy(x).cuda()
+                        for x in (ak, av, mask, rm)])
+    states = [pqueue.init(cfg, "cuda") for _ in range(lanes)]
+    n = len(pqueue.PQState._fields) - 1
+    fired = np.zeros(3, np.int64)
+    for t in range(ticks):
+        batch = [torch.stack([s[f][t] for s in streams]) for f in range(4)]
+        leaves = [torch.stack(xs) for xs in zip(
+            *(pqueue.tree_leaves(s) for s in states))]
+        lanes_state = pqueue.PQState(*leaves[:n],
+                                     stats=pqueue.PQStats(*leaves[n:]))
+        got = _launched_once(lane_tick.fused_tick_mid, cfg, lanes_state,
+                             *batch)
+        want = lane_tick.fused_tick_mid_plain(cfg, lanes_state, *batch)
+        for i, (g, x) in enumerate(zip(pqueue.tree_leaves(got),
+                                       pqueue.tree_leaves(want))):
+            assert _same_bits(g, x), f"tick {t} leaf {i}"
+        p = got.pending
+        fired += [int(x.any()) for x in (p.need_scatter, p.need_rebal,
+                                         p.need_move)]
+        states = [pqueue.tick(cfg, s, *(b[i] for b in batch))[0]
+                  for i, s in enumerate(states)]
+    assert (fired > 0).all(), fired.tolist()
+
+
 def _mixed_keys(rng, shape):
     """Uniform keys with duplicates, INF padding and both zeros."""
     k = rng.uniform(-100, 100, shape).astype(np.float32)
@@ -149,7 +212,7 @@ def _sort_keys(rng, shape, mix):
 #: one-CTA rows end at 4096 keys (csrc/bitonic.cu kRowTile)
 _SORT_SHAPES = [(3, 1), (3, 31), (3, 32), (4, 1000), (2, 4095), (2, 4096),
                 (2, 4097), (3, 16384), (2, 40000), (1, 65536), (1, 65537),
-                (1, 100000), (1024, 1024), (8, 512)]
+                (1, 100000), (1024, 1024), (8, 512), (8, 4096), (1, 4096)]
 
 
 @pytest.mark.gpu
@@ -286,3 +349,47 @@ def test_sharded_engine_matches_torch_twin(lanes):
     for name in ("add_par", "n_rebalance", "n_movehead", "n_chophead"):
         assert int(getattr(st, name).sum()) > 0, name
     assert int(s_c.n_preroute_elim) > 0
+
+
+@pytest.mark.gpu
+def test_adaptive_engine_matches_torch_twin():
+    """The adaptive engine over a stream that switches sharded -> pqe ->
+    sharded at the repair-forcing geometry: bit-equal to its "torch" twin
+    on every tick, the plan and controller state too; K3 and K2 launch,
+    K1 and K4 never (the launch counts against the plan trace are held
+    at w4096 by chip_smoke.py)."""
+    _need_gpu()
+    base = {f: getattr(CFG, f) for f in CFG.__dataclass_fields__
+            if f != "backend"}
+    spec = dict(engine="adaptive", width=W, lanes=4)
+    eng_c = make_engine(EngineSpec(base=PQConfig(backend="cuda", **base),
+                                   **spec))
+    eng_t = make_engine(EngineSpec(base=PQConfig(backend="torch", **base),
+                                   **spec))
+    s_c, s_t = eng_c.init(seed=0), eng_t.init(seed=0)
+    rng = np.random.default_rng(71)
+    launches = [w.launches for w in (
+        lane_tick.fused_tick_mid, bitonic.bitonic_sort_kvf,
+        merge_consume.merge_sorted_kvf, radix_select.radix_select_threshold)]
+    kinds = set()
+    for t in range(96):
+        n = 64 if t == 0 else (32 if t < 48 else 0)
+        keys = np.full(W, np.inf, np.float32)
+        keys[:n] = rng.uniform(0, 1000, n)
+        batch = [torch.as_tensor(x).cuda() for x in (
+            keys, np.arange(W, dtype=np.int32), np.arange(W) < n,
+            np.int32(0 if t == 0 else (32 if t < 48 else 16)))]
+        s_c, r_c = eng_c.tick(s_c, *batch)
+        s_t, r_t = eng_t.tick(s_t, *batch)
+        assert (s_c.kind, s_c.lanes, s_c.preroute, s_c.ctl) == \
+            (s_t.kind, s_t.lanes, s_t.preroute, s_t.ctl), t
+        for i, (g, w) in enumerate(zip(pqueue.tree_leaves((s_c.inner, r_c)),
+                                       pqueue.tree_leaves((s_t.inner, r_t)))):
+            assert _same_bits(g, w), f"tick {t} leaf {i}"
+        kinds.add(s_c.kind)
+    assert kinds == {"pqe", "sharded"} and s_c.ctl.n_switches == 2
+    k3, k2, k1, k4 = (w.launches - n for w, n in zip(
+        (lane_tick.fused_tick_mid, bitonic.bitonic_sort_kvf,
+         merge_consume.merge_sorted_kvf, radix_select.radix_select_threshold),
+        launches))
+    assert k3 > 0 and k2 > 0 and k1 == 0 and k4 == 0, (k3, k2, k1, k4)

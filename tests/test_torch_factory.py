@@ -109,11 +109,13 @@ def test_cuda_backend_on_cpu_raises():
                     device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["dist", "adaptive", "nope"])
+@pytest.mark.parametrize("kind", ["dist", "elastic", "nope"])
 def test_unported_or_unknown_engine_raises(kind):
-    with pytest.raises(ValueError, match=r"\['pqe', 'sharded'\]"):
+    with pytest.raises(ValueError, match=r"\['adaptive', 'fcskiplist', "
+                       r"'lfskiplist', 'pqe', 'sharded'\]"):
         make_engine(EngineSpec(engine=kind), device="cpu")
-    assert engine_kinds() == ["pqe", "sharded"]
+    assert engine_kinds() == ["adaptive", "fcskiplist", "lfskiplist", "pqe",
+                              "sharded"]
 
 
 def test_unknown_backend_raises():
@@ -155,7 +157,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.merge_consume, "
             "repro_torch.kernels.radix_select, repro_torch.kernels.ref, "
             "repro_torch.core.sharded, repro_torch.core.elimination, "
-            "repro_torch.core.factory, repro_torch.core.interop\n"
+            "repro_torch.core.factory, repro_torch.core.interop, "
+            "repro_torch.core.baselines, repro_torch.core.adaptive, "
+            "repro_torch.quality, repro_torch.quality.harness, "
+            "repro_torch.quality.tuner\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
