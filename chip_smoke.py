@@ -10,12 +10,14 @@ Phases, each fatal on failure:
    build/ (one nvcc per source, all at once);
 3. kernel vs plain version — the lane-tick kernel against its plain
    PyTorch version on the card, bit for bit, on states driven through
-   real ticks, at thirteen geometry/lane settings (the repair-forcing
+   real ticks, at eighteen geometry/lane settings (the repair-forcing
    geometry also at a head tile width of 64 slots, so merge windows
    cross tile edges, and on a stream whose keys tie; the lane geometries
-   of the two sharded cells of phase 7 at L=8; the adaptive engine's
-   fold-headroom lane geometry of phase 8c at L=8 and L=1); both timed
-   on the device clock, with the host-clocked call time beside it;
+   of the two sharded cells of phase 7 at L=8 and, for phase 9's
+   positions, L=4; the adaptive engine's fold-headroom lane geometry of
+   phase 8c at L=8 and L=1; phase 9's kill and serving lane geometries);
+   both timed on the device clock, with the host-clocked call time
+   beside it;
 4. main path at w4096 — ``make_engine(EngineSpec(engine="pqe",
    width=4096))`` (the "cuda" kernel backend) beside a "torch" twin: warm
    2000 keys, 200 ticks at p_add 0.5 with DES keys, quiet ticks until
@@ -67,7 +69,25 @@ Phases, each fatal on failure:
       walk with its trace.
    K3 and K2 launch in 8b and 8c exactly as the plan trace predicts
    (pqe ticks, re-insertion ticks, sharded lane-work ticks); K1 and K4
-   never.
+   never;
+9. the serving path —
+   a. ``make_engine(EngineSpec(engine="dist", ...))`` on phase 7's two
+      cells (filled through the sharded L=8 engine, its state placed on
+      each mesh) at D=2 x l=4 (both positions on the card) and D=1 x
+      l=8, each beside its "torch" twin and the sharded engine: every
+      mix and quiet tick bit-equal to both (the state gathered), the multiset
+      conserved, the envelope held, nothing dropped; K3 (grid l) and K2
+      (the position's [l, W/L] router sort) launch once per position on
+      each of its lane-work ticks; µs per tick beside sharded L=8;
+   b. at w4096, D=2 with ``spare_devices=1``: position 1 removed at tick
+      10 (``remove_device``), the multiset conserved across the resize,
+      nothing dropped, the envelope held at L=4 from the next tick;
+   c. ``repro_torch.serving.build_engine`` on two positions of the card
+      for the five cells of benchmarks/serve_bench.py at their own kwargs
+      and a width-1024 cell with its chaos twin: every tick the exact
+      outcome partition, no phantom or duplicate rid, the depth under
+      its cap; each drains to empty; quantiles printed beside
+      BENCH_pq.json's, µs per serving tick and the device busy share.
 
 The last lines are a JSON record of the kernels and the run's status
 line.  Imports nothing of JAX or of the JAX package.
@@ -362,22 +382,33 @@ KERNEL_GROUPS = (("lane_tick", ("head_kernel", "rows_kernel", "move_kernel")),
 
 
 def kernel_share(eng, state, rows):
-    """Device time over a profiled window of ticks: the port's kernels
-    by name (the lane tick's three, and K2's, the sharded router's sort),
-    every device event (kernels, copies, fills) in all, and both as
-    shares of the window's wall time; None when the profiler records no
-    device time.  Only device events are summed: a CPU op's self device
-    time repeats the kernels it launched."""
+    """:func:`device_profile` over the ticks of ``rows``."""
+    ak, av, mask, rm = rows
+    box = [state, 0]
+
+    def step():
+        t = box[1]
+        box[0], _ = eng.tick(box[0], ak[t], av[t], mask[t], rm[t])
+        box[1] += 1
+    return device_profile(step, ak.shape[0])
+
+
+def device_profile(step, n):
+    """Device time over ``n`` calls of ``step`` (a tick) under the
+    profiler: the port's kernels by name (the lane tick's three, and
+    K2's, the sharded router's sort), every device event (kernels,
+    copies, fills) in all, and both as shares of the window's wall time;
+    None when the profiler records no device time.  Only device events
+    are summed: a CPU op's self device time repeats the kernels it
+    launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    ak, av, mask, rm = rows
-    n = ak.shape[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(n):
-            state, _ = eng.tick(state, ak[t], av[t], mask[t], rm[t])
+        for _ in range(n):
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ours = {group: {} for group, _ in KERNEL_GROUPS}
@@ -646,6 +677,17 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
             prod["rows"][1][:1].reshape(8, 128).clone()),
         "PRODUCTION k_max row [1, 65536]": (pk.reshape(1, -1)[:, :65536],
                                             pv.reshape(1, -1)[:, :65536]),
+        # phase 9: a D=2 position's router, the kill cell's survivors, the
+        # width-64 serving cells' positions
+        "dist D=2 lane batch [4, 512]": (wk_add[:, :2048].reshape(4, 512),
+                                         wv_add[:, :2048].reshape(4, 512)),
+        "dist D=2 lane batch [4, 128]": (
+            prod["rows"][0][:1, :512].reshape(4, 128).clone(),
+            prod["rows"][1][:1, :512].reshape(4, 128).clone()),
+        "dist kill survivors [4, 1024]": (wk_add.reshape(4, 1024),
+                                          wv_add.reshape(4, 1024)),
+        "serving W64 lane batch [2, 16]": (wk_add[:, :32].reshape(2, 16),
+                                           wv_add[:, :32].reshape(2, 16)),
     }
     # row lengths around the one-CTA limit (4096 keys) and past it
     for n in (1, 31, 32, 4095, 4097, 65537, 100000):
@@ -914,6 +956,33 @@ def lane_fired(state):
                        "n_preroute_ticks": int(state.n_preroute_ticks)}
 
 
+def sharded_cell(args, config, w4096):
+    """Phase 7's cell streams on the card: the spec, then (fill, mix,
+    quiet) device rows.  w4096: 2000 keys warm, 200 ticks at p_add 0.5
+    with DES keys, then quiet ticks (None at PRODUCTION); PRODUCTION:
+    filled to 262,144 residents, then 100 ticks at p_add 0.5 uniform."""
+    width = 4096 if w4096 else 1024
+    spec = dict(width=width, lanes=8)
+    if not w4096:
+        spec["base"] = config.PRODUCTION
+    rng = np.random.default_rng(args.seed + (7 if w4096 else 8))
+    quiet_rows = None
+    if w4096:
+        warm = rng.uniform(0, KEY_HI, WARM_ELEMENTS).astype(np.float32)
+        first = to_device(batch_rows(width, [warm], [0]))
+        mix, rms, lo = mix_keys(rng, width, 0.5, 200, "des")
+        quiet = [(lo + rng.exponential(KEY_HI / WARM_ELEMENTS * 8, 64))
+                 .astype(np.float32) for _ in range(200)]
+        quiet_rows = to_device(batch_rows(width, quiet, [0] * 200))
+    else:
+        n_fill = 262_144 // width
+        fill = [rng.uniform(0, KEY_HI, width).astype(np.float32)
+                for _ in range(n_fill)]
+        first = to_device(batch_rows(width, fill, [0] * n_fill))
+        mix, rms, _ = mix_keys(rng, width, 0.5, 100, "uniform")
+    return spec, first, to_device(batch_rows(width, mix, rms)), quiet_rows
+
+
 def sharded_path(args, factory, config, pq, shq, lt, ops, counters):
     """Phase 7 over both cells.  Every launch count is set to 0 before
     each cell and read after it.  Returns {cell: record}."""
@@ -921,26 +990,8 @@ def sharded_path(args, factory, config, pq, shq, lt, ops, counters):
     out = {}
     for cell in ("sharded_w4096_L8_des", "sharded_production_L8_uniform"):
         w4096 = cell.startswith("sharded_w4096")
-        width = 4096 if w4096 else 1024
-        spec = dict(width=width, lanes=8)
-        if not w4096:
-            spec["base"] = config.PRODUCTION
+        spec, first, mix_rows, quiet_rows = sharded_cell(args, config, w4096)
         engines, states = sharded_pair(factory, **spec)
-        rng = np.random.default_rng(args.seed + (7 if w4096 else 8))
-        if w4096:
-            warm = rng.uniform(0, KEY_HI, WARM_ELEMENTS).astype(np.float32)
-            first = to_device(batch_rows(width, [warm], [0]))
-            mix, rms, lo = mix_keys(rng, width, 0.5, 200, "des")
-            quiet = [(lo + rng.exponential(KEY_HI / WARM_ELEMENTS * 8, 64))
-                     .astype(np.float32) for _ in range(200)]
-            quiet_rows = to_device(batch_rows(width, quiet, [0] * 200))
-        else:
-            n_fill = 262_144 // width
-            fill = [rng.uniform(0, KEY_HI, width).astype(np.float32)
-                    for _ in range(n_fill)]
-            first = to_device(batch_rows(width, fill, [0] * n_fill))
-            mix, rms, _ = mix_keys(rng, width, 0.5, 100, "uniform")
-        mix_rows = to_device(batch_rows(width, mix, rms))
 
         cons = Conservation(engines[0], ops)
         torch.cuda.synchronize()
@@ -1368,6 +1419,439 @@ def quality_path(factory, quality, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving path (the mesh queue, fault tolerance, the request
+# engine)
+# ---------------------------------------------------------------------------
+
+#: two mesh positions on the one card
+TWO_ON_ONE = ("cuda:0", "cuda:0")
+
+
+class PositionLaunches:
+    """K3 and K2 launches per mesh position.  Inside the ``with`` block,
+    ``distributed._position_tick`` (one position's lane work, looked up at
+    call time) is wrapped: each call of a "cuda" lane config charges the
+    counters' growth within it to (lanes per position, position).
+    ``calls[(l, p)]`` = [calls, K3 launches, K2 launches]."""
+
+    def __init__(self, dq, counters):
+        self.dq, self.counters = dq, counters
+        self.calls = {}
+
+    def __enter__(self):
+        inner, k3, k2 = (self.dq._position_tick,
+                         self.counters["fused_tick_mid"],
+                         self.counters["bitonic_sort_kvf"])
+        calls = self.calls
+
+        def counted(scfg, part, route_inv, ak, av, am, grants, lane_lo,
+                    n_local):
+            before = (k3.launches, k2.launches)
+            out = inner(scfg, part, route_inv, ak, av, am, grants, lane_lo,
+                        n_local)
+            if scfg.lane.backend == "cuda":
+                c = calls.setdefault((n_local, lane_lo // n_local), [0, 0, 0])
+                c[0] += 1
+                c[1] += k3.launches - before[0]
+                c[2] += k2.launches - before[1]
+            return out
+
+        self.inner = inner
+        self.dq._position_tick = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.dq._position_tick = self.inner
+
+    def check(self, label, n_local, work_ticks):
+        """Each position launched K3 and K2 once on each of its lane-work
+        ticks (``work_ticks``, the queues' own count), and at least once."""
+        got = [self.calls.get((n_local, p), [0, 0, 0])
+               for p in range(len(work_ticks))]
+        for p, (c, w) in enumerate(zip(got, work_ticks)):
+            if not c[0] == c[1] == c[2] == w or w == 0:
+                fail(f"{label}: position {p} ran its lanes {c[0]} times "
+                     f"with {c[1]} K3 and {c[2]} K2 launches, for {w} "
+                     "lane-work ticks")
+        return got
+
+
+def host_and_event_us(eng, state, rows):
+    """Microseconds per tick over device rows on the host clock and
+    between CUDA events (the device's timeline, idle included)."""
+    ak, av, mask, rm = rows
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for t in range(ak.shape[0]):
+        state, _ = eng.tick(state, ak[t], av[t], mask[t], rm[t])
+    end.record()
+    torch.cuda.synchronize()
+    n = ak.shape[0]
+    return ((time.perf_counter() - t0) / n * 1e6,
+            start.elapsed_time(end) / n * 1e3)
+
+
+def dist_pair(factory, n_devices, per_device, mesh, **spec):
+    """The dist engine (the "cuda" backend by default) and its "torch"
+    twin, over ``mesh`` (None: the default mesh)."""
+    engines = tuple(factory.make_engine(factory.EngineSpec(
+        engine="dist", n_devices=n_devices, lanes_per_device=per_device,
+        **spec,
+        **({} if b is None else {"backend": b})), mesh=mesh)
+        for b in (None, "torch"))
+    eng = engines[0]
+    if eng.cfg.shard.lane.backend != "cuda" or any(
+            d.type != "cuda" for d in eng.mesh):
+        fail("the default dist engine is not the cuda backend on the card")
+    return engines
+
+
+def dist_path(args, factory, config, pq, shq, dq, ops, counters):
+    """9a.  Phase 7's cells: the fill runs through the sharded L=8 cuda
+    engine (phase 7 drives the dist path's fill ticks as its own) and its
+    state is placed on each dist engine's mesh; then the mix (and at
+    w4096 the quiet ticks) through the dist engine at D=2 x l=4 (both
+    positions on the card) and D=1 x l=8, each beside its "torch" twin and
+    the sharded engine, every tick: the dist engines bit-equal to the
+    sharded one (state gathered) and to their twins, the multiset
+    conserved and the envelope held (D=2), nothing dropped.  K3 and K2
+    counted per position against its lane-work ticks; then µs per tick of
+    the three cuda engines in turns."""
+    out = {}
+    for cell in ("dist_w4096_des", "dist_production_uniform"):
+        w4096 = cell.startswith("dist_w4096")
+        spec, first, mix_rows, quiet_rows = sharded_cell(args, config, w4096)
+        sh = factory.make_engine(factory.EngineSpec(engine="sharded",
+                                                    **spec))
+        meshes = {"D2x4": dist_pair(factory, 2, 4, TWO_ON_ONE, **spec),
+                  "D1x8": dist_pair(factory, 1, 8, None, **spec)}
+        for name, (eng, _) in meshes.items():
+            if eng.cfg.shard != sh.cfg:
+                fail(f"{cell} {name}: the dist config is not sharded L=8's")
+        s_sh = sh.init(seed=0)
+        cons = Conservation(sh, ops)
+        ak, av, mask, rm = first
+        for t in range(ak.shape[0]):
+            s_sh, r_sh = sh.tick(s_sh, ak[t], av[t], mask[t], rm[t])
+            cons.tick(f"{cell} fill", t, s_sh, r_sh, ak[t], av[t], mask[t],
+                      rm[t])
+        states = {name: tuple(dq.scatter(e.cfg, e.mesh, s_sh) for e in pair)
+                  for name, pair in meshes.items()}
+        start = (s_sh, {n: s[0] for n, s in states.items()})
+        cons.eng = meshes["D2x4"][0]
+        parts = [("mix", mix_rows)]
+        if quiet_rows is not None:
+            parts.append(("quiet", quiet_rows))
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        ticks = sh_work = 0
+        marks = shq.lane_work_marks(s_sh)
+        results = {}
+        with PositionLaunches(dq, counters) as pl:
+            for part, rows in parts:
+                ak, av, mask, rm = rows
+                for t in range(ak.shape[0]):
+                    label = f"{cell} {part} tick {t}"
+                    batch = (ak[t], av[t], mask[t], rm[t])
+                    s_sh, r_sh = sh.tick(s_sh, *batch)
+                    marks, before = shq.lane_work_marks(s_sh), marks
+                    sh_work += marks > before
+                    for name, (e_c, e_t) in meshes.items():
+                        s_c, r_c = e_c.tick(states[name][0], *batch)
+                        s_t, r_t = e_t.tick(states[name][1], *batch)
+                        states[name] = (s_c, s_t)
+                        results[name] = r_c
+                        leaves_equal(pq, (dq.gather(s_c), r_c), (s_sh, r_sh),
+                                     f"{label} {name} vs sharded", t)
+                        leaves_equal(pq, (s_c, r_c), (s_t, r_t),
+                                     f"{label} {name} vs torch", t)
+                    # the dist states equal the sharded one: its counters
+                    # are theirs
+                    if int(s_sh.lanes.stats.n_dropped.sum()) or int(
+                            s_sh.n_router_dropped):
+                        fail(f"{label}: the queue dropped keys")
+                    cons.tick(label, t, states["D2x4"][0], results["D2x4"],
+                              *batch)
+                    ticks += 1
+                    if part == "quiet" and int(
+                            s_sh.lanes.stats.n_chophead.sum()):
+                        break
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in counters.items()}
+        per_pos = {name: pl.check(f"{cell} {name}", pair[0].cfg
+                                  .lanes_per_device, pair[0].work_ticks)
+                   for name, pair in meshes.items()}
+        dist_k3 = sum(c[1] for cs in per_pos.values() for c in cs)
+        if launches["fused_tick_mid"] != sh_work + dist_k3:
+            fail(f"{cell}: {launches['fused_tick_mid']} K3 launches, "
+                 f"expected {sh_work} (sharded) + {dist_k3} (positions)")
+        if launches["merge_sorted_kvf"] or launches["radix_select_threshold"]:
+            fail(f"{cell}: the dist path launched K1 or K4: {launches}")
+        if meshes["D1x8"][0].work_ticks != [sh_work]:
+            fail(f"{cell}: D=1 worked on {meshes['D1x8'][0].work_ticks} "
+                 f"ticks, sharded on {sh_work}")
+        # µs per tick from the post-fill states, in turns
+        window = tuple(x[:30] for x in mix_rows)
+        order = [("sharded", sh, start[0])] + [
+            (n, meshes[n][0], start[1][n]) for n in ("D2x4", "D1x8")]
+        us = {name: [] for name, _, _ in order}
+        for name, eng, st in order + order[::-1]:
+            us[name].append(host_and_event_us(eng, st, window))
+        rec = dict(cell=cell, device=card(), ticks=ticks,
+                   resident_after_fill=int(shq.size(start[0])),
+                   sharded_work=sh_work, launches=launches,
+                   per_position={n: [dict(calls=c[0], k3=c[1], k2=c[2])
+                                     for c in cs]
+                                 for n, cs in per_pos.items()},
+                   worst_rank=cons.worst, us_per_tick_host_and_events=us)
+        print(f"dist_path {json.dumps(rec)}", flush=True)
+        out[cell] = rec
+    return out
+
+
+def lane_drops(state):
+    """Keys the lanes of a dist state have shed (their ``n_dropped``)."""
+    return sum(int(p.stats.n_dropped.sum()) for p in state.lanes)
+
+
+def resident_pairs(ops, eng, state):
+    keys, vals, live = eng.resident(state)
+    return torch.sort(packed_pairs(ops, keys[live], vals[live])).values
+
+
+def kill_path(args, factory, config, pq, dq, ops, counters, at=10,
+              after=30):
+    """9b.  Phase 7's w4096 stream through dist D=2 x l=4 (both on the
+    card) with ``spare_devices=1``: position 1 is removed at tick ``at``
+    (``remove_device``: drain, fold, re-insert), then ``after`` more
+    ticks at L=4.  The resize conserves the multiset exactly and the
+    router drops nothing.  Every tick the envelope holds (at the new L
+    from the first tick after) and the multiset is conserved but for the
+    keys the lanes' own counters count as shed: the reference's geometry
+    sizes ``spare_devices`` lanes' quotas, not their stores, so the
+    surviving lanes shed keys after the kill, in the reference as in the
+    port (tests/torch_kill_shed_check.py)."""
+    spec, first, mix_rows, _ = sharded_cell(args, config, True)
+    q = factory.make_engine(factory.EngineSpec(
+        engine="dist", n_devices=2, lanes_per_device=4, spare_devices=1,
+        **spec), mesh=TWO_ON_ONE)
+    state = q.init(seed=0)
+    rows = tuple(torch.cat([a, b[:at + after]]) for a, b in zip(first,
+                                                                mix_rows))
+    cons = Conservation(q, ops)
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    work = [0, 0]
+    with PositionLaunches(dq, counters) as pl:
+        for t in range(rows[0].shape[0]):
+            if t == at:
+                before = resident_pairs(ops, q, state)
+                q0 = q
+                q, state = q.remove_device(state, 1)
+                if not torch.equal(resident_pairs(ops, q, state), before):
+                    fail("kill: the resize lost or invented keys")
+                if q.cfg.shard.n_lanes != 4 or len(q.mesh) != 1:
+                    fail(f"kill: {q.cfg.shard.n_lanes} lanes after the kill")
+                work = q0.work_ticks
+                cons.eng = q
+            batch = tuple(x[t] for x in rows)
+            shed_before = lane_drops(state)
+            state, res = q.tick(state, *batch)
+            if int(state.n_router_dropped):
+                fail(f"kill tick {t}: the router dropped keys")
+            if t < at and lane_drops(state):
+                fail(f"kill tick {t}: a lane shed keys before the kill")
+            cons.tick("kill", t, state, res, *batch,
+                      dropped=lane_drops(state) - shed_before)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in counters.items()}
+    got = pl.check("kill", 4, [work[0] + q.work_ticks[0], work[1]])
+    rec = dict(cell="dist_kill_w4096", device=card(), killed_at=at,
+               resident_at_kill=int(before.numel()),
+               shed_after_kill=lane_drops(state),
+               ticks=int(rows[0].shape[0]), launches=launches,
+               per_position=[dict(calls=c[0], k3=c[1], k2=c[2])
+                             for c in got], worst_rank=cons.worst)
+    print(f"kill_path {json.dumps(rec)}", flush=True)
+    return rec
+
+
+#: benchmarks/serve_bench.py's cells at its own kwargs (width 64, D=2 x
+#: l=2, n_slots 8, depth cap 48, seed 0), then one wide cell and its chaos
+#: twin (width 1024, D=2 x l=4, n_slots 128)
+SERVE_CELLS = {
+    "serve_steady": dict(rho=0.7, pattern="poisson", ticks=300),
+    "serve_over": dict(rho=1.5, pattern="poisson", ticks=500),
+    "serve_burst": dict(rho=1.0, pattern="bursty", ticks=300,
+                        burst_factor=4.0),
+    "serve_chaos": dict(rho=0.9, pattern="poisson", ticks=120,
+                        chaos="kill:1@10", spare_devices=1),
+    "serve_relaxed": dict(rho=0.7, pattern="poisson", ticks=300,
+                          quality=dict(max_defer=3, defer_frac=0.5)),
+}
+SERVE_NARROW = dict(width=64, lanes_per_device=2, n_slots=8, depth_cap=48)
+SERVE_WIDE = dict(width=1024, lanes_per_device=4, n_slots=128)
+WIDE_CELLS = {
+    "serve_wide_steady": dict(rho=0.7, pattern="poisson", ticks=300),
+    "serve_wide_chaos": dict(rho=0.9, pattern="poisson", ticks=300,
+                             chaos="kill:1@10", spare_devices=1),
+}
+
+
+def serve_checks(cell, eng, rec, served_seen):
+    """The request engine's contract after one tick: the outcome
+    partition is exact, no rid is served twice or before it arrived, the
+    depth stays under its cap."""
+    total = (sum(eng.outcomes.values()) + eng.depth
+             + eng.admission.pending)
+    if total != eng.n_arrivals:
+        fail(f"{cell} tick {eng.n_ticks}: {total} outcomes for "
+             f"{eng.n_arrivals} arrivals")
+    for rid in rec["served_rids"]:
+        if rid in served_seen or rid >= eng.arrivals.next_rid:
+            fail(f"{cell}: phantom or duplicate rid {rid}")
+        served_seen.add(rid)
+    if eng.depth > eng.policy.depth_cap:
+        fail(f"{cell}: depth {eng.depth} over its cap "
+             f"{eng.policy.depth_cap}")
+
+
+def serving_path(args, serving, parse_chaos, dq, counters, bench):
+    """9c.  Each cell through ``repro_torch.serving.build_engine`` on
+    two positions of the card: every tick the checks of
+    :func:`serve_checks`; then the drain to empty, the retry flush and the
+    exact partition; ticks 50-99 of the two steady cells profiled.
+    Prints the quantiles beside BENCH_pq.json's (information only)."""
+    out = {}
+    cells = [(c, dict(SERVE_NARROW, **kw)) for c, kw in SERVE_CELLS.items()]
+    cells += [(c, dict(SERVE_WIDE, **kw)) for c, kw in WIDE_CELLS.items()]
+    for cell, kw in cells:
+        kw = dict(kw)
+        ticks = kw.pop("ticks")
+        chaos = kw.pop("chaos", None)
+        schedule = parse_chaos(chaos, n_devices=2) if chaos else None
+        eng = serving.build_engine(n_devices=2, seed=args.seed,
+                                   mesh=TWO_ON_ONE, schedule=schedule, **kw)
+        q = eng.queue.queue
+        if q.cfg.shard.lane.backend != "cuda" or any(
+                d.type != "cuda" for d in q.mesh):
+            fail(f"{cell}: the serving queue is not the cuda backend on "
+                 "the card")
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        served, profile, spent, t = set(), None, 0.0, 0
+        with PositionLaunches(dq, counters) as pl:
+            while t < ticks:
+                if t == 50 and cell.endswith("steady"):   # ticks 50-99
+                    profile = device_profile(lambda: serve_checks(
+                        cell, eng, eng.tick(), served), 50)
+                    t += 50
+                    continue
+                t0 = time.perf_counter()
+                rec = eng.tick()
+                spent += time.perf_counter() - t0
+                serve_checks(cell, eng, rec, served)
+                t += 1
+            drain = eng.drain()
+            for _ev in eng.admission.flush(eng.clock.now):
+                eng.outcomes[serving.SHED] += 1
+        torch.cuda.synchronize()
+        r = eng.report()
+        if (r["served"] + r["shed"] + r["expired"] != r["arrivals"]
+                or r["in_flight"] or r["retry_pending"]
+                or eng.queue.size() != 0):
+            fail(f"{cell}: did not drain to an exact partition: {r}")
+        if chaos and len(eng.queue.live) != 1:
+            fail(f"{cell}: the scheduled kill never fired")
+        launches = {k: w.launches for k, w in counters.items()}
+        k3 = sum(c[1] for c in pl.calls.values())
+        k2 = sum(c[2] for c in pl.calls.values())
+        # (pre-route elimination serves every request of a tick whose
+        # arrivals fit the free slots: only the others reach the lanes)
+        calls = sum(c[0] for c in pl.calls.values())
+        if not (calls == k3 == k2 == launches["fused_tick_mid"]
+                == launches["bitonic_sort_kvf"]):
+            fail(f"{cell}: K3 {launches['fused_tick_mid']} and K2 "
+                 f"{launches['bitonic_sort_kvf']} launches, {k3} / {k2} "
+                 f"inside the positions' {calls} lane-work runs")
+        n_timed = ticks - (50 if profile is not None else 0)
+        rec = dict(cell=cell, device=card(), ticks=ticks, drain_ticks=drain,
+                   arrivals=r["arrivals"], served=r["served"],
+                   shed=r["shed"], expired=r["expired"],
+                   shed_reasons=r["shed_reasons"], max_depth=r["max_depth"],
+                   depth_cap=r["depth_cap"], p50=r["p50"], p99=r["p99"],
+                   p999=r["p999"], live_devices=r["live_devices"],
+                   bench_pq=bench.get(cell), k3=k3, k2=k2,
+                   us_per_serving_tick=spent / n_timed * 1e6,
+                   profile=profile)
+        print(f"serving_path {json.dumps(rec)}", flush=True)
+        out[cell] = rec
+    if not sum(r["k3"] for r in out.values()):
+        fail("the serving cells never launched K3")
+    return out
+
+
+def serving_kernels(records, records_k3, dist, kill, served):
+    """The kernels line's entries of phase 9: K3 and K2 per cell, with
+    their launches there and the timings phases 3 and 6 took at the same
+    shapes."""
+    kernels = []
+
+    def k2_entry(name, launches, label):
+        r = records[f"sort_kvf {label} uniform"]
+        return dict(name=f"bitonic_sort_kvf[router {name}]", route="cuda",
+                    source="src/repro_torch/kernels/csrc/bitonic.cu",
+                    replaces="src/repro/kernels/bitonic.py:89",
+                    launches=launches, max_abs_err=r["max_abs_err"],
+                    **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
+
+    def k3_entry(name, launches, k3):
+        r = records_k3[k3]
+        return dict(name=f"lane_tick[{name}]", route="cuda",
+                    source="src/repro_torch/kernels/csrc/lane_tick.cu",
+                    replaces="src/repro/kernels/lane_tick.py:185",
+                    launches=launches, max_abs_err=r["max_abs_err"],
+                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by="bytes", library_ms=None)
+
+    for cell, k3, k2 in (
+            ("dist_w4096_des", "sharded_w4096", ("[4, 512]", "[8, 512]")),
+            ("dist_production_uniform", "sharded_production",
+             ("[4, 128]", "[8, 128]"))):
+        for (name, l3), shape in zip((("D2x4", f"{k3}_L4"), ("D1x8", k3)),
+                                     k2):
+            per = dist[cell]["per_position"][name]
+            kernels.append(k3_entry(f"{cell} {name}",
+                                    sum(c["k3"] for c in per), l3))
+            kernels.append(k2_entry(
+                f"{cell} {name}", sum(c["k2"] for c in per),
+                f"{'dist D=2' if name == 'D2x4' else 'sharded L=8'} lane "
+                f"batch {shape}"))
+    kill_k = [sum(c[k] for c in kill["per_position"]) for k in ("k3", "k2")]
+    kernels.append(k3_entry("dist_kill_w4096 D2x4 to D1x4", kill_k[0],
+                            "kill_L4"))
+    kernels.append(k2_entry("dist_kill_w4096 D2x4 to D1x4", kill_k[1],
+                            "dist kill survivors [4, 1024]"))
+    for name, cells, k3, k2 in (
+            ("serving W64 D2x2", SERVE_CELLS, "serve64_L2",
+             "serving W64 lane batch [2, 16]"),
+            ("serving W1024 D2x4", WIDE_CELLS, "serve1024_L4",
+             "dist D=2 lane batch [4, 128]")):
+        kernels.append(k3_entry(name, sum(served[c]["k3"] for c in cells),
+                                k3))
+        kernels.append(k2_entry(name, sum(served[c]["k2"] for c in cells),
+                                k2))
+    return kernels
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1379,9 +1863,11 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import quality
+    from repro_torch import quality, serving
     from repro_torch.core import adaptive, config, factory, pqueue as pq
+    from repro_torch.core import distributed as dq
     from repro_torch.core import sharded as shq
+    from repro_torch.ft.inject import parse_chaos
     from repro_torch.core.ref_pq import RefPQ
     from repro_torch.kernels import bitonic, build, merge_consume
     from repro_torch.kernels import lane_tick as lt
@@ -1394,7 +1880,7 @@ def main() -> None:
     t_start = time.perf_counter()
     # 1. device
     smi = card()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     print(f"device: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -1462,6 +1948,10 @@ def main() -> None:
         records_k3[cell] = kernel_vs_plain(
             f"{cell}_L8", lane, mix_streams(8, lane.a_max, warm, 6, dist),
             warm, lt, pq)
+        # phase 9a's D=2 positions: four of these lanes a launch
+        records_k3[f"{cell}_L4"] = kernel_vs_plain(
+            f"{cell}_L4", lane, mix_streams(4, lane.a_max, warm, 6, dist),
+            warm, lt, pq)
     # the adaptive engine's fold-headroom lane geometry (min_lanes=1) of
     # phase 8c, at both lane counts it runs
     fold_lane = factory.make_engine(factory.EngineSpec(
@@ -1471,6 +1961,24 @@ def main() -> None:
         records_k3[f"fold_L{lanes}"] = kernel_vs_plain(
             f"adaptive_fold_L{lanes}", fold_lane,
             mix_streams(lanes, fold_lane.a_max, 1, 6, "des"), 1, lt, pq)
+
+    # phase 9's other lane geometries: the kill cell's spare-sized lanes
+    # (grid 4), the serving cells' at width 64 (grid 2) and 1024 (grid 4)
+    kill_lane = factory.make_engine(factory.EngineSpec(
+        engine="dist", width=4096, lanes=8, n_devices=2, lanes_per_device=4,
+        spare_devices=1, backend="torch"), device="cpu").cfg.shard.lane
+    records_k3["kill_L4"] = kernel_vs_plain(
+        "dist_kill_L4", kill_lane, mix_streams(4, kill_lane.a_max, 1, 6,
+                                               "des"), 1, lt, pq)
+    for setting, kw, lanes in (("serve64_L2", SERVE_NARROW, 2),
+                               ("serve1024_L4", SERVE_WIDE, 4)):
+        lane = serving.build_engine(
+            n_devices=2, device="cpu", backend="torch",
+            **{k: v for k, v in kw.items() if k != "depth_cap"}
+        ).queue.queue.cfg.shard.lane
+        records_k3[setting] = kernel_vs_plain(
+            setting, lane, mix_streams(lanes, lane.a_max, 1, 6, "des"), 1,
+            lt, pq)
 
     # 4-5. the main path through the engine API
     w4096_run = main_path_w4096(args, factory, pq, lt, RefPQ)
@@ -1512,6 +2020,14 @@ def main() -> None:
     check_fold(fold)
     quality_path(factory, quality, counters)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+
+    # 9. the serving path: the mesh queue, a kill, the request engine
+    t9 = time.perf_counter()
+    dist = dist_path(args, factory, config, pq, shq, dq, ops, counters)
+    kill = kill_path(args, factory, config, pq, dq, ops, counters)
+    bench = json.loads((ROOT / "BENCH_pq.json").read_text())["results"]
+    served = serving_path(args, serving, parse_chaos, dq, counters, bench)
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -1573,6 +2089,7 @@ def main() -> None:
                 max_abs_err=r["max_abs_err"],
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}))
+    kernels += serving_kernels(records, records_k3, dist, kill, served)
     for kname, wrapper, src, replaces, label in (
             ("K1", "merge_sorted_kvf", "merge_consume.cu",
              "src/repro/kernels/merge_consume.py:119",
@@ -1594,7 +2111,7 @@ def main() -> None:
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -685,3 +685,60 @@ class AdaptiveEngine:
                 "lane quotas under-sized for the fold target"
             )
         return inner
+
+
+# ---------------------------------------------------------------------------
+# lane-scale controller (the distributed queue's workload controller)
+# ---------------------------------------------------------------------------
+
+
+class LaneScaleController:
+    """The workload controller for the distributed queue, where an engine
+    switch is unavailable (lanes live on devices): the fold decision
+    becomes ``lane_scale`` grant caps.  When the balanced-dispersed regime
+    latches, lanes beyond ``min_lanes`` are capped at ``floor`` and shed
+    serve work onto the leading lanes through the allocator's water-fill,
+    without moving any state.  The caller
+    (:class:`repro_torch.ft.elastic.ElasticDistQueue`) composes the caps
+    with the fault-tolerance throttle by elementwise ``min``."""
+
+    def __init__(self, cfg: Optional[ControllerConfig], n_lanes: int,
+                 min_lanes: int, *, floor: float = 0.25):
+        self.cfg = cfg or ControllerConfig()
+        self.n_lanes = n_lanes
+        self.min_lanes = max(1, min(min_lanes, n_lanes))
+        self.floor = float(floor)
+        self.ctl = ControllerState()
+        self._tick = 0
+
+    def observe(self, add_keys, add_mask, rm_count) -> None:
+        """Accumulate one tick's signals (one host read); latch decisions
+        at each window boundary."""
+        dev = (add_keys.device if isinstance(add_keys, torch.Tensor)
+               else "cpu")
+        bal, bal_n, disp, disp_n = _window_signals(
+            pqueue._as_tensor(add_keys, _F32, dev)[None],
+            pqueue._as_tensor(add_mask, torch.bool, dev)[None],
+            pqueue._as_tensor(rm_count, _I32, dev).reshape(1)).tolist()
+        self.ctl = dataclasses.replace(
+            self.ctl,
+            acc_bal=self.ctl.acc_bal + bal,
+            acc_bal_n=self.ctl.acc_bal_n + bal_n,
+            acc_disp=self.ctl.acc_disp + disp,
+            acc_disp_n=self.ctl.acc_disp_n + disp_n,
+        )
+        self._tick += 1
+        if self._tick % self.cfg.window == 0:
+            # decide() only for its EMA and latch bookkeeping: the plan is
+            # not used here
+            self.ctl, _ = decide(
+                self.cfg, self.ctl, Plan("sharded", self.n_lanes, "adaptive"),
+                max_lanes=self.n_lanes, min_lanes=self.min_lanes,
+                base_preroute="adaptive")
+
+    def lane_scale(self) -> np.ndarray:
+        """[n_lanes] grant-cap multipliers for the current regime."""
+        scale = np.ones((self.n_lanes,), np.float32)
+        if not self.cfg.freeze and self.ctl.balanced and self.ctl.dispersed:
+            scale[self.min_lanes:] = self.floor
+        return scale

@@ -8,14 +8,21 @@ The same surface as the JAX package's ``core/factory.py``::
     state = eng.init(seed=0)
     state, res = eng.tick(state, keys, vals, mask, rm_count)
 
-Every single-device kind of the reference is registered: the paper's
-combined queue (``"pqe"``), the L-lane relaxed queue (``"sharded"``), the
-workload controller that switches between them (``"adaptive"``) and the
-paper's two baselines (``"fcskiplist"``, ``"lfskiplist"``); any other
-kind (the mesh's ``"dist"`` and ``"elastic"``) raises ``ValueError``
-naming the registered kinds.  Engines run on ``device="cuda"`` unless
-the caller passes ``device="cpu"``; the ``"cuda"`` kernel backend on a
-CPU device raises at construction (the baselines read no backend).
+Every kind of the reference is registered: the paper's combined queue
+(``"pqe"``), the L-lane relaxed queue (``"sharded"``), the workload
+controller that switches between them (``"adaptive"``), the paper's two
+baselines (``"fcskiplist"``, ``"lfskiplist"``), the lanes-over-devices
+queue (``"dist"``) and its fault-tolerance loop (``"elastic"``); any other
+kind raises ``ValueError`` naming the registered kinds.  Engines run on
+``device="cuda"`` unless the caller passes ``device="cpu"``; the
+``"cuda"`` kernel backend on a CPU device raises at construction (the
+baselines read no backend).  Keyword arguments pass through to the
+builder (``mesh=`` for dist and elastic, ``schedule=`` / ``seed=`` /
+``tick_dt=`` etc. for elastic)::
+
+    q = make_engine(EngineSpec(engine="dist", width=4096, lanes=8,
+                               n_devices=2, lanes_per_device=4),
+                    mesh=["cuda:0", "cuda:0"])   # two positions, one card
 """
 
 from __future__ import annotations
@@ -68,12 +75,18 @@ class EngineSpec:
     # "cuda" | "torch"; None keeps the base config's backend
     backend: Optional[str] = None
 
-    # lane geometry (sharded / adaptive); min_lanes is fold headroom:
-    # quotas sized so the queue can fold down to it
+    # lane geometry (sharded / dist / elastic / adaptive); min_lanes is
+    # fold headroom: quotas sized so the queue can fold down to it
     lanes: int = 4
     min_lanes: Optional[int] = None
     slack: float = 1.0
     preroute: str = "adaptive"
+
+    # mesh placement (dist / elastic)
+    n_devices: int = 1
+    lanes_per_device: Optional[int] = None  # None -> lanes // n_devices
+    spare_devices: int = 0
+    axis: str = "data"
 
     # paper §2.1 adaptive-detach knobs; None keeps the base config value
     detach_min: Optional[int] = None
@@ -82,7 +95,7 @@ class EngineSpec:
     halve_threshold: Optional[int] = None
     double_threshold: Optional[int] = None
 
-    # workload controller (adaptive): a
+    # workload controller (adaptive / elastic): a
     # repro_torch.core.adaptive.ControllerConfig or None for defaults
     controller: Any = None
 
@@ -146,7 +159,8 @@ _REGISTRY: Dict[str, Callable[..., Any]] = {}
 
 
 def register(name: str):
-    """Register an engine builder ``(spec, *, device) -> QueueEngine``."""
+    """Register an engine builder ``(spec, *, device, **kw) ->
+    QueueEngine``."""
 
     def deco(fn):
         _REGISTRY[name] = fn
@@ -159,9 +173,10 @@ def engine_kinds():
     return sorted(_REGISTRY)
 
 
-def make_engine(spec: EngineSpec, *, device="cuda") -> QueueEngine:
+def make_engine(spec: EngineSpec, *, device="cuda", **kw) -> QueueEngine:
     """Resolve ``spec.engine`` through the registry and build the engine
-    on ``device``."""
+    on ``device``; keyword arguments pass through to the builder, which
+    raises on those it does not take."""
     try:
         build = _REGISTRY[spec.engine]
     except KeyError:
@@ -169,7 +184,7 @@ def make_engine(spec: EngineSpec, *, device="cuda") -> QueueEngine:
             f"unknown or not yet ported engine {spec.engine!r} "
             f"(have {engine_kinds()})"
         ) from None
-    return build(spec, device=torch.device(device))
+    return build(spec, device=torch.device(device), **kw)
 
 
 def _check_device(backend: str, device: torch.device) -> None:
@@ -333,3 +348,36 @@ def _build_adaptive(spec: EngineSpec, *, device: torch.device):
     from repro_torch.core import adaptive   # deferred: adaptive imports us
 
     return adaptive.AdaptiveEngine(spec, device)
+
+
+def _dist_cfg_of(spec: EngineSpec):
+    from repro_torch.core import distributed as dq
+
+    lpd = spec.lanes_per_device
+    if lpd is None:
+        if spec.lanes % spec.n_devices:
+            raise ValueError(
+                f"lanes ({spec.lanes}) must divide evenly across "
+                f"n_devices ({spec.n_devices}); or set lanes_per_device")
+        lpd = spec.lanes // spec.n_devices
+    return dq._dist_cfg(spec.width, spec.n_devices, lpd,
+                        base=resolved_base(spec), slack=spec.slack,
+                        spare_devices=spec.spare_devices,
+                        preroute=spec.preroute, axis=spec.axis)
+
+
+@register("dist")
+def _build_dist(spec: EngineSpec, *, device: torch.device, mesh=None):
+    from repro_torch.core import distributed as dq   # deferred: it imports us
+
+    return dq.DistShardedQueue(_dist_cfg_of(spec), mesh, device=device)
+
+
+@register("elastic")
+def _build_elastic(spec: EngineSpec, *, device: torch.device, mesh=None,
+                   **elastic_kw):
+    from repro_torch.core import distributed as dq
+    from repro_torch.ft.elastic import ElasticDistQueue
+
+    q = dq.DistShardedQueue(_dist_cfg_of(spec), mesh, device=device)
+    return ElasticDistQueue(q, controller=spec.controller, **elastic_kw)

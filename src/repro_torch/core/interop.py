@@ -4,7 +4,9 @@ A state crosses as its flat list of numpy leaves, in the order of
 ``jax.tree.leaves`` on the reference's ``PQState`` (the fields in order,
 then the 15 stats counters).  A sharded state crosses the same way,
 as every leaf of the reference's ``ShardedState`` but ``rng`` (the
-packages' router generators differ; the port's is seeded afresh).  The
+packages' router generators differ; the port's is seeded afresh).  A
+distributed state crosses as the same leaves (the reference's is a
+``ShardedState`` placed on its mesh), split over the port's mesh.  The
 baselines' ``FCState`` and ``ParState`` cross as all their leaves, in
 field order.
 Nothing here imports JAX: the caller takes ``np.asarray`` of each
@@ -18,6 +20,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dq
 from repro_torch.core import pqueue
 from repro_torch.core import sharded as shq
 from repro_torch.core.baselines import FCPQ, FCState, ParallelPQ, ParState
@@ -82,6 +85,23 @@ def sharded_state_to_numpy(state: shq.ShardedState) -> List[np.ndarray]:
     """The state's leaves but ``rng`` as numpy arrays, in the reference's
     order."""
     return [x.detach().cpu().numpy() for x in _sharded_leaves(state)]
+
+
+def dist_state_from_numpy(cfg: dq.DistShardedPQConfig,
+                          leaves: Sequence[np.ndarray], mesh, *,
+                          seed: int = 0) -> dq.DistState:
+    """The port's DistState on ``mesh`` (a list of devices, one per
+    position) from the reference's numpy leaves without ``rng``; the
+    router's generator starts from ``seed``."""
+    mesh = [torch.device(d) for d in mesh]
+    return dq.scatter(cfg, mesh, sharded_state_from_numpy(
+        cfg.shard, leaves, mesh[0], seed=seed))
+
+
+def dist_state_to_numpy(state: dq.DistState) -> List[np.ndarray]:
+    """The state's leaves but ``rng`` as numpy arrays, in the order of the
+    reference's ``ShardedState`` (the positions' lanes concatenated)."""
+    return sharded_state_to_numpy(dq.gather(state))
 
 
 def _baseline_from_numpy(want, leaves, device):

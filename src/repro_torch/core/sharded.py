@@ -259,7 +259,7 @@ def _route_counts(cfg: ShardedPQConfig, route_inv, add_mask):
 
 
 def _route_adds_sorted(cfg: ShardedPQConfig, route_inv, add_keys,
-                       add_vals, add_mask):
+                       add_vals, add_mask, rows=None):
     """Router and per-lane sort: each lane's slots sit contiguously in
     ``route_inv`` in static windows (the route permutes the balanced
     pattern), so routing is one gather; one stable row co-sort of the
@@ -267,10 +267,18 @@ def _route_adds_sorted(cfg: ShardedPQConfig, route_inv, add_keys,
     K2 for "cuda") then key-sorts every lane, ties in slot order.  The
     sort orders keys by the u32 map and returns their f32 bits, as the
     reference's ``lax.sort`` on ``_to_sortable_u32`` does.  Returns
-    per-lane [L, a_lane] (keys, vals, taken prefix, n_dropped)."""
+    per-lane [L, a_lane] (keys, vals, taken prefix, n_dropped).
+
+    ``rows=(lane_lo, n_rows)`` routes and sorts only the window of
+    ``n_rows`` lanes from ``lane_lo`` (one mesh position's lanes of the
+    distributed queue); each row equals the full call's row."""
     L, al = cfg.n_lanes, cfg.lane.a_max
     w = add_keys.shape[0]
     idx, pad = _route_geometry(w, L, add_keys.device)        # [L, smax]
+    if rows is not None:
+        lane_lo, n_rows = rows
+        idx = idx[lane_lo:lane_lo + n_rows]
+        pad = pad[lane_lo:lane_lo + n_rows]
     smax = idx.shape[1]
     src = route_inv[idx.clamp(0, w - 1).long()].long()
     live = ~pad & add_mask[src]
@@ -359,19 +367,22 @@ def _gate_open(cfg: ShardedPQConfig, state: ShardedState, add_mask,
 
 
 def _preroute_eliminate(state: ShardedState, add_keys, add_vals, add_mask,
-                        rm_count, run: bool):
+                        rm_count, run: bool, union_min=None):
     """Queue-level elimination before routing (paper §2.2 scaled to
     lanes), when ``run`` (the gate, decided by the caller): adds with
     ``key <=`` the min-of-lane-heads pair with removes and are served
-    directly.
+    directly.  ``union_min`` overrides the bound taken from
+    ``state.lanes`` (the distributed queue passes its gathered one).
 
     Returns (residual (keys, vals, mask) in slot order, residual
     rm_count, matched_keys, matched_vals, n_matched, ran)."""
     w = add_keys.shape[0]
     dev = add_keys.device
     if run:
+        if union_min is None:
+            union_min = _union_min(state.lanes)
         er = elimination.eliminate_batch_unsorted(
-            add_keys, add_vals, add_mask, rm_count, _union_min(state.lanes))
+            add_keys, add_vals, add_mask, rm_count, union_min)
         return (add_keys.to(_F32), add_vals.to(_I32), er.residual_mask,
                 er.residual_rm, er.matched_keys, er.matched_vals,
                 er.n_matched, torch.ones((), dtype=torch.bool, device=dev))

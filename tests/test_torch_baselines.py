@@ -219,8 +219,8 @@ def test_scatter_parallel_both_branches_match_reference():
 
 
 def test_factory_builds_both_baselines():
-    assert engine_kinds() == ["adaptive", "fcskiplist", "lfskiplist", "pqe",
-                              "sharded"]
+    assert engine_kinds() == ["adaptive", "dist", "elastic", "fcskiplist",
+                              "lfskiplist", "pqe", "sharded"]
     for kind in ("fcskiplist", "lfskiplist"):
         # the baselines read no kernel backend: the default spec builds
         # on the CPU too

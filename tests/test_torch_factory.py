@@ -3,7 +3,8 @@
 * ``PQEngine`` conforms to the port's ``QueueEngine`` protocol and gives
   the same ``relax_bound`` as the reference engine for the same spec.
 * Construction rejects the kernel backend on a CPU device, unknown
-  backends, and engines not yet ported.
+  backends and unknown engines; the mesh kinds ``dist`` and ``elastic``
+  build on a CPU mesh.
 * A state crosses between the packages through ``state_from_numpy`` /
   ``state_to_numpy`` unchanged.
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``.
@@ -111,11 +112,28 @@ def test_cuda_backend_on_cpu_raises():
 
 @pytest.mark.parametrize("kind", ["dist", "elastic", "nope"])
 def test_unported_or_unknown_engine_raises(kind):
-    with pytest.raises(ValueError, match=r"\['adaptive', 'fcskiplist', "
-                       r"'lfskiplist', 'pqe', 'sharded'\]"):
-        make_engine(EngineSpec(engine=kind), device="cpu")
-    assert engine_kinds() == ["adaptive", "fcskiplist", "lfskiplist", "pqe",
-                              "sharded"]
+    """The mesh kinds build on the CPU (every kind of the reference is
+    ported); an unknown kind raises, naming the seven."""
+    kinds = ["adaptive", "dist", "elastic", "fcskiplist", "lfskiplist",
+             "pqe", "sharded"]
+    assert engine_kinds() == kinds
+    spec = EngineSpec(engine=kind, width=64, backend="torch", lanes=4,
+                      n_devices=2)
+    if kind == "nope":
+        with pytest.raises(ValueError, match=re.escape(str(kinds))):
+            make_engine(spec, device="cpu")
+        return
+    eng = make_engine(spec, device="cpu")
+    assert eng.kind == kind and isinstance(eng, QueueEngine)
+    queue = eng if kind == "dist" else eng.queue
+    assert queue.mesh == [torch.device("cpu")] * 2
+    assert queue.cfg.lanes_per_device == 2 and eng.width == 64
+    state = eng.init(seed=0)
+    state, res = eng.tick(state, np.zeros(64, np.float32),
+                          np.arange(64, dtype=np.int32), np.ones(64, bool),
+                          8)
+    assert int(res.rm_served.sum()) == 8
+    assert int(eng.stats(state).depth) == 56
 
 
 def test_unknown_backend_raises():
@@ -160,7 +178,12 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.core.factory, repro_torch.core.interop, "
             "repro_torch.core.baselines, repro_torch.core.adaptive, "
             "repro_torch.quality, repro_torch.quality.harness, "
-            "repro_torch.quality.tuner\n"
+            "repro_torch.quality.tuner, repro_torch.core.distributed, "
+            "repro_torch.ft, repro_torch.ft.heartbeat, repro_torch.ft.inject, "
+            "repro_torch.ft.straggler, repro_torch.ft.elastic, "
+            "repro_torch.serving, repro_torch.serving.arrivals, "
+            "repro_torch.serving.scheduler, repro_torch.serving.engine, "
+            "repro_torch.serving.sla\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
