@@ -10,12 +10,13 @@ Phases, each fatal on failure:
    build/ (one nvcc per source, all at once);
 3. kernel vs plain version — the lane-tick kernel against its plain
    PyTorch version on the card, bit for bit, on states driven through
-   real ticks, at eighteen geometry/lane settings (the repair-forcing
+   real ticks, at twenty geometry/lane settings (the repair-forcing
    geometry also at a head tile width of 64 slots, so merge windows
    cross tile edges, and on a stream whose keys tie; the lane geometries
    of the two sharded cells of phase 7 at L=8 and, for phase 9's
    positions, L=4; the adaptive engine's fold-headroom lane geometry of
-   phase 8c at L=8 and L=1; phase 9's kill and serving lane geometries);
+   phase 8c at L=8 and L=1; phase 9's kill lane geometry and its serving
+   cells' lane geometries, with and without a spare position);
    both timed on the device clock, with the host-clocked call time
    beside it;
 4. main path at w4096 — ``make_engine(EngineSpec(engine="pqe",
@@ -72,13 +73,13 @@ Phases, each fatal on failure:
    never;
 9. the serving path —
    a. ``make_engine(EngineSpec(engine="dist", ...))`` on phase 7's two
-      cells (filled through the sharded L=8 engine, its state placed on
-      each mesh) at D=2 x l=4 (both positions on the card) and D=1 x
-      l=8, each beside its "torch" twin and the sharded engine: every
-      mix and quiet tick bit-equal to both (the state gathered), the multiset
-      conserved, the envelope held, nothing dropped; K3 (grid l) and K2
-      (the position's [l, W/L] router sort) launch once per position on
-      each of its lane-work ticks; µs per tick beside sharded L=8;
+      cells at D=2 x l=4 (both positions on the card) and D=1 x l=8,
+      each beside its "torch" twin and the sharded engine: every fill,
+      mix and quiet tick bit-equal to both (the state gathered), the
+      multiset conserved, the envelope held, nothing dropped; K3 (grid l)
+      and K2 (the position's [l, W/L] router sort) launch once per
+      position on each of its lane-work ticks; µs per tick beside
+      sharded L=8;
    b. at w4096, D=2 with ``spare_devices=1``: position 1 removed at tick
       10 (``remove_device``), the multiset conserved across the resize,
       nothing dropped, the envelope held at L=4 from the next tick;
@@ -90,13 +91,17 @@ Phases, each fatal on failure:
       BENCH_pq.json's, µs per serving tick and the device busy share.
 
 The last lines are a JSON record of the kernels and the run's status
-line.  Imports nothing of JAX or of the JAX package.
+line.  Phase 9's rows in it are one per kernel setting (K3's lane
+geometry and grid, K2's router shape), each with the launches made at
+that setting and the error and times phase 3 or 6 measured there.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -311,7 +316,7 @@ def kernel_vs_plain(name, cfg, streams, check_from, lt, pq, head_tile=None):
     plain_ms, plain_device_only = device_ms(plain, 5)
     moved = sum(x.numel() * x.element_size() for x in inputs + outs)
     rec = dict(setting=name, lanes=lanes, head_tile=head_tile,
-               checked_ticks=checked,
+               geometry=lane_geometry(cfg), checked_ticks=checked,
                fired=fired.tolist(), max_abs_err=err, ms=ms,
                ms_device_only=ms_device_only, call_ms=cuda_ms(kernel, 20),
                plain_ms=plain_ms, plain_ms_device_only=plain_device_only,
@@ -678,7 +683,7 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
         "PRODUCTION k_max row [1, 65536]": (pk.reshape(1, -1)[:, :65536],
                                             pv.reshape(1, -1)[:, :65536]),
         # phase 9: a D=2 position's router, the kill cell's survivors, the
-        # width-64 serving cells' positions
+        # serving cells' positions
         "dist D=2 lane batch [4, 512]": (wk_add[:, :2048].reshape(4, 512),
                                          wv_add[:, :2048].reshape(4, 512)),
         "dist D=2 lane batch [4, 128]": (
@@ -688,6 +693,12 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
                                           wv_add.reshape(4, 1024)),
         "serving W64 lane batch [2, 16]": (wk_add[:, :32].reshape(2, 16),
                                            wv_add[:, :32].reshape(2, 16)),
+        # the chaos cells' survivors: width 64 and 1024 over half the lanes
+        "serving W64 survivors [2, 32]": (wk_add[:, :64].reshape(2, 32),
+                                          wv_add[:, :64].reshape(2, 32)),
+        "serving W1024 survivors [4, 256]": (
+            wk_add[:, :1024].reshape(4, 256),
+            wv_add[:, :1024].reshape(4, 256)),
     }
     # row lengths around the one-CTA limit (4096 keys) and past it
     for n in (1, 31, 32, 4095, 4097, 65537, 100000):
@@ -1428,22 +1439,30 @@ def quality_path(factory, quality, counters):
 TWO_ON_ONE = ("cuda:0", "cuda:0")
 
 
+def lane_geometry(lane):
+    """A lane config's geometry, backend aside: the kernel settings of
+    phase 3 and the lane work of phase 9 meet on it."""
+    return repr(dataclasses.replace(lane, backend="torch"))
+
+
 class PositionLaunches:
-    """K3 and K2 launches per mesh position.  Inside the ``with`` block,
-    ``distributed._position_tick`` (one position's lane work, looked up at
-    call time) is wrapped: each call of a "cuda" lane config charges the
-    counters' growth within it to (lanes per position, position).
-    ``calls[(l, p)]`` = [calls, K3 launches, K2 launches]."""
+    """K3 and K2 launches per mesh position and per kernel setting.  Inside
+    the ``with`` block, ``distributed._position_tick`` (one position's lane
+    work, looked up at call time) is wrapped: each call of a "cuda" lane
+    config charges the counters' growth within it to (lanes per position,
+    position) and to its kernels' shapes.  ``calls[(l, p)]`` = [calls, K3
+    launches, K2 launches]; ``k3[(lane geometry, l)]`` = K3 launches at
+    grid l, ``k2[(l, smax)]`` = K2 launches on [l, smax] router rows."""
 
     def __init__(self, dq, counters):
         self.dq, self.counters = dq, counters
-        self.calls = {}
+        self.calls, self.k3, self.k2 = {}, {}, {}
 
     def __enter__(self):
         inner, k3, k2 = (self.dq._position_tick,
                          self.counters["fused_tick_mid"],
                          self.counters["bitonic_sort_kvf"])
-        calls = self.calls
+        calls, at3, at2 = self.calls, self.k3, self.k2
 
         def counted(scfg, part, route_inv, ak, av, am, grants, lane_lo,
                     n_local):
@@ -1451,10 +1470,15 @@ class PositionLaunches:
             out = inner(scfg, part, route_inv, ak, av, am, grants, lane_lo,
                         n_local)
             if scfg.lane.backend == "cuda":
+                got = (k3.launches - before[0], k2.launches - before[1])
                 c = calls.setdefault((n_local, lane_lo // n_local), [0, 0, 0])
                 c[0] += 1
-                c[1] += k3.launches - before[0]
-                c[2] += k2.launches - before[1]
+                c[1] += got[0]
+                c[2] += got[1]
+                g3 = (lane_geometry(scfg.lane), n_local)
+                g2 = (n_local, -(-ak.shape[0] // scfg.n_lanes))
+                at3[g3] = at3.get(g3, 0) + got[0]
+                at2[g2] = at2.get(g2, 0) + got[1]
             return out
 
         self.inner = inner
@@ -1475,6 +1499,13 @@ class PositionLaunches:
                      f"with {c[1]} K3 and {c[2]} K2 launches, for {w} "
                      "lane-work ticks")
         return got
+
+    def shapes(self):
+        """The launches by kernel setting, for a cell's record:
+        (K3 [[lane geometry, grid, launches]], K2 [[rows, smax,
+        launches]])."""
+        return ([[g, l, n] for (g, l), n in self.k3.items()],
+                [[l, n_, k] for (l, n_), k in self.k2.items()])
 
 
 def host_and_event_us(eng, state, rows):
@@ -1511,16 +1542,14 @@ def dist_pair(factory, n_devices, per_device, mesh, **spec):
 
 
 def dist_path(args, factory, config, pq, shq, dq, ops, counters):
-    """9a.  Phase 7's cells: the fill runs through the sharded L=8 cuda
-    engine (phase 7 drives the dist path's fill ticks as its own) and its
-    state is placed on each dist engine's mesh; then the mix (and at
-    w4096 the quiet ticks) through the dist engine at D=2 x l=4 (both
-    positions on the card) and D=1 x l=8, each beside its "torch" twin and
-    the sharded engine, every tick: the dist engines bit-equal to the
-    sharded one (state gathered) and to their twins, the multiset
-    conserved and the envelope held (D=2), nothing dropped.  K3 and K2
-    counted per position against its lane-work ticks; then µs per tick of
-    the three cuda engines in turns."""
+    """9a.  Phase 7's cells (fill, mix and at w4096 the quiet ticks)
+    through the dist engine at D=2 x l=4 (both positions on the card) and
+    D=1 x l=8, each beside its "torch" twin and the sharded L=8 cuda
+    engine, every tick: the dist engines bit-equal to the sharded one
+    (state gathered) and to their twins, the multiset conserved and the
+    envelope held (D=2), nothing dropped.  K3 and K2 counted per position
+    against its lane-work ticks and per kernel setting; then µs per tick
+    of the three cuda engines in turns, from the filled states."""
     out = {}
     for cell in ("dist_w4096_des", "dist_production_uniform"):
         w4096 = cell.startswith("dist_w4096")
@@ -1533,17 +1562,10 @@ def dist_path(args, factory, config, pq, shq, dq, ops, counters):
             if eng.cfg.shard != sh.cfg:
                 fail(f"{cell} {name}: the dist config is not sharded L=8's")
         s_sh = sh.init(seed=0)
-        cons = Conservation(sh, ops)
-        ak, av, mask, rm = first
-        for t in range(ak.shape[0]):
-            s_sh, r_sh = sh.tick(s_sh, ak[t], av[t], mask[t], rm[t])
-            cons.tick(f"{cell} fill", t, s_sh, r_sh, ak[t], av[t], mask[t],
-                      rm[t])
-        states = {name: tuple(dq.scatter(e.cfg, e.mesh, s_sh) for e in pair)
+        states = {name: tuple(e.init(seed=0) for e in pair)
                   for name, pair in meshes.items()}
-        start = (s_sh, {n: s[0] for n, s in states.items()})
-        cons.eng = meshes["D2x4"][0]
-        parts = [("mix", mix_rows)]
+        cons = Conservation(meshes["D2x4"][0], ops)
+        parts = [("fill", first), ("mix", mix_rows)]
         if quiet_rows is not None:
             parts.append(("quiet", quiet_rows))
         torch.cuda.synchronize()
@@ -1554,6 +1576,8 @@ def dist_path(args, factory, config, pq, shq, dq, ops, counters):
         results = {}
         with PositionLaunches(dq, counters) as pl:
             for part, rows in parts:
+                if part == "mix":     # the timings start from the fill
+                    start = (s_sh, {n: s[0] for n, s in states.items()})
                 ak, av, mask, rm = rows
                 for t in range(ak.shape[0]):
                     label = f"{cell} {part} tick {t}"
@@ -1595,7 +1619,7 @@ def dist_path(args, factory, config, pq, shq, dq, ops, counters):
         if meshes["D1x8"][0].work_ticks != [sh_work]:
             fail(f"{cell}: D=1 worked on {meshes['D1x8'][0].work_ticks} "
                  f"ticks, sharded on {sh_work}")
-        # µs per tick from the post-fill states, in turns
+        # µs per tick from the filled states, in turns
         window = tuple(x[:30] for x in mix_rows)
         order = [("sharded", sh, start[0])] + [
             (n, meshes[n][0], start[1][n]) for n in ("D2x4", "D1x8")]
@@ -1608,7 +1632,8 @@ def dist_path(args, factory, config, pq, shq, dq, ops, counters):
                    per_position={n: [dict(calls=c[0], k3=c[1], k2=c[2])
                                      for c in cs]
                                  for n, cs in per_pos.items()},
-                   worst_rank=cons.worst, us_per_tick_host_and_events=us)
+                   shapes=pl.shapes(), worst_rank=cons.worst,
+                   us_per_tick_host_and_events=us)
         print(f"dist_path {json.dumps(rec)}", flush=True)
         out[cell] = rec
     return out
@@ -1677,7 +1702,8 @@ def kill_path(args, factory, config, pq, dq, ops, counters, at=10,
                shed_after_kill=lane_drops(state),
                ticks=int(rows[0].shape[0]), launches=launches,
                per_position=[dict(calls=c[0], k3=c[1], k2=c[2])
-                             for c in got], worst_rank=cons.worst)
+                             for c in got], shapes=pl.shapes(),
+               worst_rank=cons.worst)
     print(f"kill_path {json.dumps(rec)}", flush=True)
     return rec
 
@@ -1789,6 +1815,7 @@ def serving_path(args, serving, parse_chaos, dq, counters, bench):
                    depth_cap=r["depth_cap"], p50=r["p50"], p99=r["p99"],
                    p999=r["p999"], live_devices=r["live_devices"],
                    bench_pq=bench.get(cell), k3=k3, k2=k2,
+                   shapes=pl.shapes(),
                    us_per_serving_tick=spent / n_timed * 1e6,
                    profile=profile)
         print(f"serving_path {json.dumps(rec)}", flush=True)
@@ -1799,56 +1826,56 @@ def serving_path(args, serving, parse_chaos, dq, counters, bench):
 
 
 def serving_kernels(records, records_k3, dist, kill, served):
-    """The kernels line's entries of phase 9: K3 and K2 per cell, with
-    their launches there and the timings phases 3 and 6 took at the same
-    shapes."""
+    """The kernels line's entries of phase 9: per group of cells, one K3
+    row per lane geometry and grid and one K2 row per router shape, each
+    with the launches made at that setting and the error and timings
+    phases 3 and 6 took at the same setting.  A setting with launches
+    that neither phase held against its plain version fails the run."""
+    k3_at, k2_at = {}, {}
+    for name, r in records_k3.items():
+        k3_at.setdefault((r["geometry"], r["lanes"]), r)
+    for label, r in records.items():
+        m = re.fullmatch(r"sort_kvf .*\[(\d+), (\d+)\] uniform", label)
+        if m:
+            k2_at.setdefault((int(m[1]), int(m[2])), r)
     kernels = []
-
-    def k2_entry(name, launches, label):
-        r = records[f"sort_kvf {label} uniform"]
-        return dict(name=f"bitonic_sort_kvf[router {name}]", route="cuda",
-                    source="src/repro_torch/kernels/csrc/bitonic.cu",
-                    replaces="src/repro/kernels/bitonic.py:89",
-                    launches=launches, max_abs_err=r["max_abs_err"],
-                    **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")})
-
-    def k3_entry(name, launches, k3):
-        r = records_k3[k3]
-        return dict(name=f"lane_tick[{name}]", route="cuda",
-                    source="src/repro_torch/kernels/csrc/lane_tick.cu",
-                    replaces="src/repro/kernels/lane_tick.py:185",
-                    launches=launches, max_abs_err=r["max_abs_err"],
-                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by="bytes", library_ms=None)
-
-    for cell, k3, k2 in (
-            ("dist_w4096_des", "sharded_w4096", ("[4, 512]", "[8, 512]")),
-            ("dist_production_uniform", "sharded_production",
-             ("[4, 128]", "[8, 128]"))):
-        for (name, l3), shape in zip((("D2x4", f"{k3}_L4"), ("D1x8", k3)),
-                                     k2):
-            per = dist[cell]["per_position"][name]
-            kernels.append(k3_entry(f"{cell} {name}",
-                                    sum(c["k3"] for c in per), l3))
-            kernels.append(k2_entry(
-                f"{cell} {name}", sum(c["k2"] for c in per),
-                f"{'dist D=2' if name == 'D2x4' else 'sharded L=8'} lane "
-                f"batch {shape}"))
-    kill_k = [sum(c[k] for c in kill["per_position"]) for k in ("k3", "k2")]
-    kernels.append(k3_entry("dist_kill_w4096 D2x4 to D1x4", kill_k[0],
-                            "kill_L4"))
-    kernels.append(k2_entry("dist_kill_w4096 D2x4 to D1x4", kill_k[1],
-                            "dist kill survivors [4, 1024]"))
-    for name, cells, k3, k2 in (
-            ("serving W64 D2x2", SERVE_CELLS, "serve64_L2",
-             "serving W64 lane batch [2, 16]"),
-            ("serving W1024 D2x4", WIDE_CELLS, "serve1024_L4",
-             "dist D=2 lane batch [4, 128]")):
-        kernels.append(k3_entry(name, sum(served[c]["k3"] for c in cells),
-                                k3))
-        kernels.append(k2_entry(name, sum(served[c]["k2"] for c in cells),
-                                k2))
+    for group, recs in (
+            ("dist_w4096_des", [dist["dist_w4096_des"]]),
+            ("dist_production_uniform", [dist["dist_production_uniform"]]),
+            ("dist_kill_w4096", [kill]),
+            ("serving W64", [served[c] for c in SERVE_CELLS]),
+            ("serving W1024", [served[c] for c in WIDE_CELLS])):
+        k3, k2 = {}, {}
+        for rec in recs:
+            at3, at2 = rec["shapes"]
+            for g, l, n in at3:
+                k3[g, l] = k3.get((g, l), 0) + n
+            for l, n, k in at2:
+                k2[l, n] = k2.get((l, n), 0) + k
+        for (g, l), n in k3.items():
+            r = k3_at.get((g, l))
+            if r is None:
+                fail(f"{group}: {n} K3 launches at grid {l} on lanes {g}, a "
+                     "setting phase 3 did not hold against its plain version")
+            kernels.append(dict(
+                name=f"lane_tick[{group} {r['setting']}]", route="cuda",
+                source="src/repro_torch/kernels/csrc/lane_tick.cu",
+                replaces="src/repro/kernels/lane_tick.py:185",
+                launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by="bytes", library_ms=None))
+        for (l, n_), n in k2.items():
+            r = k2_at.get((l, n_))
+            if r is None:
+                fail(f"{group}: {n} K2 launches on [{l}, {n_}] rows, a shape "
+                     "phase 6 did not hold against its plain version")
+            kernels.append(dict(
+                name=f"bitonic_sort_kvf[router {group} [{l}, {n_}]]",
+                route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
+                replaces="src/repro/kernels/bitonic.py:89",
+                launches=n, max_abs_err=r["max_abs_err"],
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}))
     return kernels
 
 
@@ -1963,7 +1990,8 @@ def main() -> None:
             mix_streams(lanes, fold_lane.a_max, 1, 6, "des"), 1, lt, pq)
 
     # phase 9's other lane geometries: the kill cell's spare-sized lanes
-    # (grid 4), the serving cells' at width 64 (grid 2) and 1024 (grid 4)
+    # (grid 4), the serving cells' at width 64 (grid 2) and 1024 (grid 4),
+    # each without and with a spare position (the chaos cells)
     kill_lane = factory.make_engine(factory.EngineSpec(
         engine="dist", width=4096, lanes=8, n_devices=2, lanes_per_device=4,
         spare_devices=1, backend="torch"), device="cpu").cfg.shard.lane
@@ -1972,13 +2000,15 @@ def main() -> None:
                                                "des"), 1, lt, pq)
     for setting, kw, lanes in (("serve64_L2", SERVE_NARROW, 2),
                                ("serve1024_L4", SERVE_WIDE, 4)):
-        lane = serving.build_engine(
-            n_devices=2, device="cpu", backend="torch",
-            **{k: v for k, v in kw.items() if k != "depth_cap"}
-        ).queue.queue.cfg.shard.lane
-        records_k3[setting] = kernel_vs_plain(
-            setting, lane, mix_streams(lanes, lane.a_max, 1, 6, "des"), 1,
-            lt, pq)
+        for spare, suffix in ((0, ""), (1, "_spare")):
+            lane = serving.build_engine(
+                n_devices=2, device="cpu", backend="torch",
+                spare_devices=spare,
+                **{k: v for k, v in kw.items() if k != "depth_cap"}
+            ).queue.queue.cfg.shard.lane
+            records_k3[setting + suffix] = kernel_vs_plain(
+                setting + suffix, lane,
+                mix_streams(lanes, lane.a_max, 1, 6, "des"), 1, lt, pq)
 
     # 4-5. the main path through the engine API
     w4096_run = main_path_w4096(args, factory, pq, lt, RefPQ)

@@ -64,7 +64,6 @@ class DistShardedPQConfig:
 
     shard: ShardedPQConfig
     n_devices: int
-    axis: str = "data"
 
     def __post_init__(self) -> None:
         if self.n_devices < 1:
@@ -90,8 +89,7 @@ class DistShardedPQConfig:
 
 def _dist_cfg(width: int, n_devices: int, lanes_per_device: int, *,
               base: PQConfig, slack: float = 1.0, spare_devices: int = 0,
-              preroute: str = "adaptive",
-              axis: str = "data") -> DistShardedPQConfig:
+              preroute: str = "adaptive") -> DistShardedPQConfig:
     """Scale a width-``width`` single-queue config onto D positions: the
     per-lane geometry of ``sharded._sharded_cfg`` at L = D * l, with lane
     quotas sized as if only ``n_devices - spare_devices`` positions
@@ -103,7 +101,7 @@ def _dist_cfg(width: int, n_devices: int, lanes_per_device: int, *,
         width, n_devices * lanes_per_device, base=base, slack=slack,
         min_lanes=(n_devices - spare_devices) * lanes_per_device,
         preroute=preroute)
-    return DistShardedPQConfig(shard=scfg, n_devices=n_devices, axis=axis)
+    return DistShardedPQConfig(shard=scfg, n_devices=n_devices)
 
 
 class DistState(NamedTuple):
@@ -352,24 +350,6 @@ def tick(cfg: DistShardedPQConfig, state: DistState, add_keys, add_vals,
     return state, res
 
 
-def tick_n(cfg: DistShardedPQConfig, state: DistState, add_keys, add_vals,
-           add_mask, rm_counts, lane_scale=None
-           ) -> Tuple[DistState, shq.ShardedTickResult]:
-    """T ticks in a row over [T, ...]-stacked batches.  Returns (final
-    state, ShardedTickResult stacked [T, ...])."""
-    dev = state.route.device
-    aks, avs, ams, rms = pqueue._as_batch(dev, add_keys, add_vals, add_mask,
-                                          rm_counts)
-    scale = _scale(cfg, lane_scale, dev)
-    results = []
-    for t in range(aks.shape[0]):
-        state, res, _ = _tick_impl(cfg, state, aks[t], avs[t], ams[t],
-                                   rms[t], scale)
-        results.append(res)
-    return state, shq.ShardedTickResult(*(torch.stack(xs)
-                                          for xs in zip(*results)))
-
-
 # ---------------------------------------------------------------------------
 # elastic resize (drain a dead position's lanes, remap them over survivors)
 # ---------------------------------------------------------------------------
@@ -392,8 +372,7 @@ def resize(cfg: DistShardedPQConfig, mesh: Sequence[torch.device],
     keep = [i for i in range(cfg.shard.n_lanes) if not lo <= i < lo + lpd]
     new_scfg, folded, drained_keys, drained_vals = shq.fold_lanes(
         cfg.shard, gather(state), keep)
-    new_cfg = DistShardedPQConfig(shard=new_scfg,
-                                  n_devices=cfg.n_devices - 1, axis=cfg.axis)
+    new_cfg = DistShardedPQConfig(shard=new_scfg, n_devices=cfg.n_devices - 1)
     new_mesh = [d for p, d in enumerate(mesh) if p != drop_device]
     return (new_cfg, new_mesh, scatter(new_cfg, new_mesh, folded),
             drained_keys, drained_vals)
@@ -477,6 +456,8 @@ class DistShardedQueue:
 
     def tick_n(self, state: DistState, add_keys, add_vals, add_mask,
                rm_counts, lane_scale=None):
+        """T ticks in a row over [T, ...]-stacked batches.  Returns (final
+        state, ShardedTickResult stacked [T, ...])."""
         results = []
         for t in range(len(rm_counts)):
             state, res = self.tick(state, add_keys[t], add_vals[t],

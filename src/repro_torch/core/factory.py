@@ -86,7 +86,7 @@ class EngineSpec:
     n_devices: int = 1
     lanes_per_device: Optional[int] = None  # None -> lanes // n_devices
     spare_devices: int = 0
-    axis: str = "data"
+    axis: str = "data"    # the reference's shard_map axis; ignored here
 
     # paper §2.1 adaptive-detach knobs; None keeps the base config value
     detach_min: Optional[int] = None
@@ -363,7 +363,7 @@ def _dist_cfg_of(spec: EngineSpec):
     return dq._dist_cfg(spec.width, spec.n_devices, lpd,
                         base=resolved_base(spec), slack=spec.slack,
                         spare_devices=spec.spare_devices,
-                        preroute=spec.preroute, axis=spec.axis)
+                        preroute=spec.preroute)
 
 
 @register("dist")

@@ -77,15 +77,28 @@ def run_sla_cell(build_engine, run_sla, parse_chaos, kw):
     return run_sla(build_engine(**kw), ticks)
 
 
+#: the reference's jitted dist ticks by (config, mesh), shared by every
+#: run of one process: each engine it builds would compile its own
+_TICKS = {}
+
+
+def _shared_tick(cfg, mesh, _make=jdq.make_dist_tick):
+    if (cfg, mesh) not in _TICKS:
+        _TICKS[cfg, mesh] = _make(cfg, mesh)
+    return _TICKS[cfg, mesh]
+
+
 def run_reference(kw):
     """The reference's run of :func:`run_sla_cell`: returns (report,
     served rids per tick, routes)."""
     from repro.ft.inject import parse_chaos
     from repro.serving import RequestEngine, build_engine, run_sla
 
-    (report, served), routes = record_routes(lambda: record_served(
-        RequestEngine,
-        lambda: run_sla_cell(build_engine, run_sla, parse_chaos, kw)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jdq, "make_dist_tick", _shared_tick)
+        (report, served), routes = record_routes(lambda: record_served(
+            RequestEngine,
+            lambda: run_sla_cell(build_engine, run_sla, parse_chaos, kw)))
     return report, served, routes
 
 
