@@ -10,15 +10,18 @@ Phases, each fatal on failure:
    build/ (one nvcc per source, all at once);
 3. kernel vs plain version — the lane-tick kernel against its plain
    PyTorch version on the card, bit for bit, on states driven through
-   real ticks, at twenty geometry/lane settings (the repair-forcing
-   geometry also at a head tile width of 64 slots, so merge windows
-   cross tile edges, and on a stream whose keys tie; the lane geometries
-   of the two sharded cells of phase 7 at L=8 and, for phase 9's
-   positions, L=4; the adaptive engine's fold-headroom lane geometry of
-   phase 8c at L=8 and L=1; phase 9's kill lane geometry and its serving
-   cells' lane geometries, with and without a spare position);
-   both timed on the device clock, with the host-clocked call time
-   beside it;
+   real ticks, at twenty-nine geometry/lane settings (the
+   repair-forcing geometry also at a head tile width of 64 slots, so
+   merge windows cross tile edges, and on a stream whose keys tie; the
+   lane geometries of the two sharded cells of phase 7 at L=8 and, for
+   phase 9's positions, L=4; the adaptive engine's fold-headroom lane
+   geometry of phase 8c at L=8 and L=1; phase 9's kill lane geometry and
+   its serving cells' lane geometries, with and without a spare
+   position; phase 10's queues: the sampler's default, its PRODUCTION
+   queue on 10a's own ticks, the examples' queues and lanes, the dev
+   check's two configs); both timed on the device clock, with the
+   host-clocked call time beside it, and bounded by what the timed
+   input's work must move (``repro_torch.roofline.traffic``);
 4. main path at w4096 — ``make_engine(EngineSpec(engine="pqe",
    width=4096))`` (the "cuda" kernel backend) beside a "torch" twin: warm
    2000 keys, 200 ticks at p_add 0.5 with DES keys, quiet ticks until
@@ -34,9 +37,10 @@ Phases, each fatal on failure:
    ``extract_k_bucketed`` (K4 then K2) under the "cuda" backend, at the
    shapes of the w4096 and PRODUCTION cells on data from the states
    phases 4-5 leave, and K2 also at row lengths around its one-CTA limit
-   (1 to 100000 keys), each held bit for bit against the same op under
-   the "torch" backend and timed on the device clock beside it and one
-   PyTorch library call (for K2, ``torch.sort``, listed beside it);
+   (1 to 100000 keys) and at phase 9's and phase 10's router shapes,
+   each held bit for bit against the same op under the "torch" backend
+   and timed on the device clock beside it and one PyTorch library call
+   (for K2, ``torch.sort``, listed beside it);
 7. the sharded main path — ``make_engine(EngineSpec(engine="sharded",
    lanes=8, ...))`` beside a "torch" twin drawing the same routes on the
    card, at two cells: w4096 (2000 keys warm, 200 ticks at p_add 0.5
@@ -88,12 +92,34 @@ Phases, each fatal on failure:
       and a width-1024 cell with its chaos twin: every tick the exact
       outcome partition, no phantom or duplicate rid, the depth under
       its cap; each drains to empty; quantiles printed beside
-      BENCH_pq.json's, µs per serving tick and the device busy share.
+      BENCH_pq.json's, µs per serving tick and the device busy share;
+10. the queue's other users and the roofline —
+   a. ``repro_torch.data.PrioritySampler(n_groups=1024, cfg=PRODUCTION)``
+      on the card beside its "torch" twin on the card: 200 steps of
+      ``next_groups(256)``, ``report`` (losses from the seed) and
+      ``requeue``; every step the same gids, every tick the heapq
+      oracle's smallest keys served, equal breakdowns; µs per step in
+      turns, the device busy share, K3 on every tick and its device ms
+      per launch on this path;
+   b. every module of ``repro_torch.examples`` on the card: event_sim,
+      quickstart and serve_requests.main beside their "torch" twins
+      (every number equal), serve_requests.main_mesh on two positions of
+      the card with position 1 killed at t=8 (the example's own asserts:
+      exact partition, the kill fired, urgent requests within one tick),
+      dev_check_pq printing ALL OK;
+   c. a ``repro_torch.roofline`` record per engine cell of phases 4, 5
+      and 7 and for the sampler (``record_from_traffic``), and each
+      phase-3 and phase-6 setting's traffic bound beside its buffers'
+      count; no measured time may fall under its bound.
 
 The last lines are a JSON record of the kernels and the run's status
-line.  Phase 9's rows in it are one per kernel setting (K3's lane
-geometry and grid, K2's router shape), each with the launches made at
-that setting and the error and times phase 3 or 6 measured there.  Imports nothing of JAX or of the JAX package.
+line.  Phase 9's and phase 10's rows in it are one per kernel setting
+(K3's lane geometry and grid, K2's router shape), each with the launches
+made at that setting and the error and times phase 3 or 6 measured
+there (the sampler's K3 row on 10a's own ticks, with the path's own
+profiled ms per launch beside them as ``path_ms``); a launch at a
+setting neither phase held fails the run.  Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -113,7 +139,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 KEY_HI = 100_000.0
 WARM_ELEMENTS = 2000
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak (NVIDIA data sheet)
 
 
 def fail(msg: str) -> None:
@@ -271,11 +296,15 @@ def stack_lanes(pq, states):
     return pq.PQState(*stacked[:n], stats=pq.PQStats(*stacked[n:]))
 
 
-def kernel_vs_plain(name, cfg, streams, check_from, lt, pq, head_tile=None):
+def kernel_vs_plain(name, cfg, streams, check_from, lt, pq, traffic,
+                    head_tile=None):
     """Drive every lane through its stream with the plain tick; from tick
     ``check_from`` on, hold the kernel against its plain version on the
     stacked lanes, at the head tile width ``head_tile`` (default: the
-    wrapper's).  Returns a record with the last input's timings."""
+    wrapper's).  Returns a record with the last input's timings and its
+    bound from ``traffic.k3_launch`` on that input's data (the launch's
+    own buffers beside it, ``buffer_bytes``: the yardstick before the
+    traffic count)."""
     head_tile = head_tile or lt.HEAD_TILE
     lanes = len(streams)
     states = [pq.init(cfg, "cuda") for _ in streams]
@@ -314,14 +343,24 @@ def kernel_vs_plain(name, cfg, streams, check_from, lt, pq, head_tile=None):
 
     ms, ms_device_only = device_ms(kernel, 20)
     plain_ms, plain_device_only = device_ms(plain, 5)
-    moved = sum(x.numel() * x.element_size() for x in inputs + outs)
+    # what the timed input's data needs: the adds stored, the removals
+    # taken from the store (an add that an immediate or upcoming
+    # elimination serves is neither), the slots the kernel's moveHeads
+    # detach
+    n_elim = int(got.n_imm.sum() + got.n_upc.sum())
+    moved = got.pending.need_move & ~got.pending.need_rebal
+    count = traffic.k3_launch(
+        cfg, lanes, adds=int(batch[2].sum()) - n_elim,
+        removals=int(torch.isfinite(got.rm_keys).sum()) - n_elim,
+        detached=int(got.new_len[moved].sum()))
     rec = dict(setting=name, lanes=lanes, head_tile=head_tile,
                geometry=lane_geometry(cfg), checked_ticks=checked,
                fired=fired.tolist(), max_abs_err=err, ms=ms,
                ms_device_only=ms_device_only, call_ms=cuda_ms(kernel, 20),
                plain_ms=plain_ms, plain_ms_device_only=plain_device_only,
-               plain_call_ms=cuda_ms(plain, 5), bytes=moved,
-               bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+               plain_call_ms=cuda_ms(plain, 5), bytes=count.hbm_bytes,
+               bound_ms=count.bound_s() * 1e3, bound_by="bytes",
+               buffer_bytes=nbytes(*inputs, *outs))
     print(f"kernel_vs_plain {json.dumps(rec)}", flush=True)
     return rec
 
@@ -565,10 +604,10 @@ def main_path_w4096(args, factory, pq, lt, RefPQ):
         fail(f"w4096: {launches} kernel calls for {ticks} cuda ticks")
     if not (fired > 0).all():
         fail(f"w4096: not every pass fired: {fired.tolist()}")
-    timings("w4096_p50_des", engines, warm_states, mix_rows, 50,
-            {"pq": pq, "lt": lt})
+    rec = timings("w4096_p50_des", engines, warm_states, mix_rows, 50,
+                  {"pq": pq, "lt": lt})
     return dict(launches=launches, cfg=engines[0].cfg, state=mix_states[0],
-                rows=mix_rows)
+                rows=mix_rows, timing=rec)
 
 
 def main_path_production(args, factory, pq, lt, RefPQ, config):
@@ -599,10 +638,10 @@ def main_path_production(args, factory, pq, lt, RefPQ, config):
         fail(f"PRODUCTION: {launches} kernel calls for {n1 + n2} cuda ticks")
     if f2[3] == 0:
         fail("PRODUCTION: moveHead never fired")
-    timings("production_p50_uniform", engines, filled, mix_rows, 30,
-            {"pq": pq, "lt": lt})
+    rec = timings("production_p50_uniform", engines, filled, mix_rows, 30,
+                  {"pq": pq, "lt": lt})
     return dict(launches=launches, cfg=engines[0].cfg, state=states[0],
-                rows=mix_rows)
+                rows=mix_rows, timing=rec)
 
 
 # ---------------------------------------------------------------------------
@@ -611,14 +650,17 @@ def main_path_production(args, factory, pq, lt, RefPQ, config):
 
 class OpCase:
     """One op at one shape: its "cuda" and "torch" calls, a library call
-    that computes the same function (timed only), the bytes it must move,
-    and how its outputs compare (default: every output bit for bit)."""
+    that computes the same function (timed only), the bytes it must move
+    (``count``, from ``repro_torch.roofline.traffic``; ``buffer_bytes``,
+    the operands' and results' own sizes, the yardstick before it), and
+    how its outputs compare (default: every output bit for bit)."""
 
-    def __init__(self, kernel, label, cuda, plain, library, nbytes,
-                 canon=None, also=None, timed=True):
+    def __init__(self, kernel, label, cuda, plain, library, count,
+                 buffer_bytes, canon=None, also=None, timed=True):
         self.kernel, self.label = kernel, label
         self.cuda, self.plain, self.library = cuda, plain, library
-        self.nbytes, self.canon, self.also = nbytes, canon, also
+        self.count, self.buffer_bytes = count, buffer_bytes
+        self.canon, self.also = canon, also
         self.timed = timed
 
 
@@ -641,7 +683,7 @@ def key_mixes(keys, gen):
             "all_equal": torch.full_like(keys, 7.0)}
 
 
-def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
+def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select, traffic):
     """The op calls of phase 6 on data from the states phases 4-5 leave:
     the stores, sequential parts and add batches of w4096 and PRODUCTION."""
     cuda, plain = ops.resolve_backend("cuda"), ops.resolve_backend("torch")
@@ -699,6 +741,12 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
         "serving W1024 survivors [4, 256]": (
             wk_add[:, :1024].reshape(4, 256),
             wv_add[:, :1024].reshape(4, 256)),
+        # phase 10: quickstart's sharded L=4 and serve_requests at one
+        # position (width 64), the mesh example's survivor (width 128)
+        "examples W64 L=4 lane batch [4, 16]": (
+            wk_add[:, :64].reshape(4, 16), wv_add[:, :64].reshape(4, 16)),
+        "mesh example survivors [2, 64]": (
+            wk_add[:, :128].reshape(2, 64), wv_add[:, :128].reshape(2, 64)),
     }
     # row lengths around the one-CTA limit (4096 keys) and past it
     for n in (1, 31, 32, 4095, 4097, 65537, 100000):
@@ -713,7 +761,8 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
                 lambda k=k, v=v, f=f: ops.sort_kvf(k, v, f, backend=cuda),
                 lambda k=k, v=v, f=f: ops.sort_kvf(k, v, f, backend=plain),
                 lambda k=k: torch.sort(k, dim=-1, stable=True),
-                2 * nbytes(k, v, f), timed=mix == "uniform"))
+                traffic.k2_sort(*k.shape), 2 * nbytes(k, v, f),
+                timed=mix == "uniform"))
 
     # K1: merge_sorted
     sk_p, sv_p = sorted_batch(prod, 0)
@@ -741,6 +790,7 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
             lambda a=a, b=b: ops.merge_sorted(*a, *b, backend=plain),
             lambda a=a, b=b: torch.sort(torch.cat([a[0], b[0]], -1), dim=-1,
                                         stable=True),
+            traffic.k1_merge(ak.shape[0], ak.shape[1], bk.shape[1]),
             2 * nbytes(*a, *b)))
 
     # K4: select_threshold on the PRODUCTION store, flattened
@@ -753,7 +803,7 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
             lambda kt=kt: ops.select_threshold(flat_k, kt, backend=cuda),
             lambda kt=kt: ops.select_threshold(flat_k, kt, backend=plain),
             (lambda k=k: torch.kthvalue(flat_k, k, dim=-1)) if k else None,
-            nbytes(flat_k, kt) + 8,
+            traffic.k4_select(*flat_k.shape), nbytes(flat_k, kt) + 8,
             also=lambda kt=kt: radix_select.radix_select_threshold_plain(
                 flat_k, kt)))
 
@@ -768,6 +818,7 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
                                       backend=plain),
         lambda: torch.topk(flat_k, k_max, dim=-1, largest=False,
                            sorted=True),
+        traffic.select_k_smallest(*flat_k.shape, k_max),
         nbytes(flat_k, flat_v) + 8 * k_max))
     wk, wv, wc, wsp = store(w4096)
     for cell, (sk, sv, sc, spl), km, ks in (
@@ -782,7 +833,8 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select):
                     *a[:5], splitters=a[5], backend=cuda),
                 lambda a=(sk, sv, sc, k, km, spl): ops.extract_k_bucketed(
                     *a[:5], splitters=a[5], backend=plain),
-                None, 2 * nbytes(sk, sv, sc) + nbytes(spl) + 8 * km,
+                None, traffic.extract_k_bucketed(*sk.shape, km),
+                2 * nbytes(sk, sv, sc) + nbytes(spl) + 8 * km,
                 canon=canon_extract))
     return cases
 
@@ -798,12 +850,13 @@ def canon_extract(out, bitonic):
 
 
 def kernel_ops_path(args, w4096, prod, ops, pq, wrappers, bitonic,
-                    radix_select):
+                    radix_select, traffic):
     """Phase 6.  Every case's "cuda" call runs once with the launch counts
     set to 0 (the path run); then each is held against its "torch" call
     (and K4 also against its plain version) bit for bit and timed.
     Returns ({label: record}, {kernel: launches in the path run})."""
-    cases = kernel_ops_cases(args, w4096, prod, ops, pq, radix_select)
+    cases = kernel_ops_cases(args, w4096, prod, ops, pq, radix_select,
+                             traffic)
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -835,9 +888,9 @@ def kernel_ops_path(args, w4096, prod, ops, pq, wrappers, bitonic,
                          f"max |diff| {max_abs_err(g, w)}")
                 err = max(err, max_abs_err(g, w))
         rec = dict(kernel=case.kernel, op=case.label, launches=launches,
-                   max_abs_err=err,
-                   bound_ms=case.nbytes / HBM_BYTES_PER_S * 1e3,
-                   bound_by="bytes")
+                   max_abs_err=err, bytes=case.count.hbm_bytes,
+                   bound_ms=case.count.bound_s() * 1e3, bound_by="bytes",
+                   buffer_bytes=case.buffer_bytes)
         # device time per call; the host-clocked call time beside it
         for key, fn, reps in (("ms", case.cuda, 20),
                               ("plain_ms", case.plain, 10),
@@ -1045,7 +1098,8 @@ def sharded_path(args, factory, config, pq, shq, lt, ops, counters):
         rec = timings(cell, engines, start, mix_rows, 50 if w4096 else 30,
                       mods, SHARDED_STAGES)
         out[cell] = dict(launches=launches, work=work, ticks=ticks,
-                         fired=fired, worst_rank=cons.worst, timing=rec)
+                         fired=fired, worst_rank=cons.worst, timing=rec,
+                         cfg=engines[0].cfg)
     return out
 
 
@@ -1445,24 +1499,88 @@ def lane_geometry(lane):
     return repr(dataclasses.replace(lane, backend="torch"))
 
 
+class _Charged:
+    """A kernel wrapper stood in for its module's name: calls pass through,
+    and each call that launched (the wrapper's count grew) adds one to
+    ``table[key(args)]``.  ``launches`` reads and writes the wrapper's own
+    count, which the wrapper's body increments through the module name."""
+
+    def __init__(self, fn, key, table):
+        self.fn, self.key, self.table = fn, key, table
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kw):
+        before = self.fn.launches
+        out = self.fn(*args, **kw)
+        if self.fn.launches > before:
+            k = self.key(*args)
+            self.table[k] = self.table.get(k, 0) + 1
+        return out
+
+
+class SettingLaunches:
+    """K3 and K2 launches per kernel setting over any path.  Inside the
+    ``with`` block (which may be entered again, the tables kept) the two
+    wrappers' module names (which every caller looks up at call time)
+    are wrapped: a call that launched charges ``k3[(lane geometry,
+    grid)]`` or ``k2[(rows, width)]``."""
+
+    def __init__(self, lt, bitonic):
+        self.lt, self.bitonic = lt, bitonic
+        self.k3, self.k2 = {}, {}
+
+    def __enter__(self):
+        self.saved = self.lt.fused_tick_mid, self.bitonic.bitonic_sort_kvf
+        self.lt.fused_tick_mid = _Charged(
+            self.saved[0], lambda cfg, lanes, lk, *a: (lane_geometry(cfg),
+                                                        lk.shape[0]),
+            self.k3)
+        self.bitonic.bitonic_sort_kvf = _Charged(
+            self.saved[1], lambda keys, *a: tuple(keys.shape), self.k2)
+        return self
+
+    def __exit__(self, *exc):
+        self.lt.fused_tick_mid, self.bitonic.bitonic_sort_kvf = self.saved
+
+    def check(self, label, k3, k2):
+        """The settings' launches add up to ``k3`` K3 and ``k2`` K2."""
+        got = sum(self.k3.values()), sum(self.k2.values())
+        if got != (k3, k2):
+            fail(f"{label}: {got[0]} K3 and {got[1]} K2 launches by "
+                 f"setting, for {k3} and {k2}")
+
+    def shapes(self):
+        """The launches by kernel setting, for a cell's JSON record:
+        (K3 [[lane geometry, grid, launches]], K2 [[rows, width,
+        launches]])."""
+        return ([[g, l, n] for (g, l), n in self.k3.items()],
+                [[r, w, n] for (r, w), n in self.k2.items()])
+
+
 class PositionLaunches:
-    """K3 and K2 launches per mesh position and per kernel setting.  Inside
-    the ``with`` block, ``distributed._position_tick`` (one position's lane
-    work, looked up at call time) is wrapped: each call of a "cuda" lane
-    config charges the counters' growth within it to (lanes per position,
-    position) and to its kernels' shapes.  ``calls[(l, p)]`` = [calls, K3
-    launches, K2 launches]; ``k3[(lane geometry, l)]`` = K3 launches at
-    grid l, ``k2[(l, smax)]`` = K2 launches on [l, smax] router rows."""
+    """K3 and K2 launches per mesh position.  Inside the ``with`` block,
+    ``distributed._position_tick`` (one position's lane work, looked up
+    at call time) is wrapped: each call of a "cuda" lane config charges
+    the counters' growth within it to (lanes per position, position),
+    ``calls[(l, p)]`` = [calls, K3 launches, K2 launches].  The launches
+    per kernel setting are :class:`SettingLaunches`' count."""
 
     def __init__(self, dq, counters):
         self.dq, self.counters = dq, counters
-        self.calls, self.k3, self.k2 = {}, {}, {}
+        self.calls = {}
 
     def __enter__(self):
         inner, k3, k2 = (self.dq._position_tick,
                          self.counters["fused_tick_mid"],
                          self.counters["bitonic_sort_kvf"])
-        calls, at3, at2 = self.calls, self.k3, self.k2
+        calls = self.calls
 
         def counted(scfg, part, route_inv, ak, av, am, grants, lane_lo,
                     n_local):
@@ -1470,15 +1588,10 @@ class PositionLaunches:
             out = inner(scfg, part, route_inv, ak, av, am, grants, lane_lo,
                         n_local)
             if scfg.lane.backend == "cuda":
-                got = (k3.launches - before[0], k2.launches - before[1])
                 c = calls.setdefault((n_local, lane_lo // n_local), [0, 0, 0])
                 c[0] += 1
-                c[1] += got[0]
-                c[2] += got[1]
-                g3 = (lane_geometry(scfg.lane), n_local)
-                g2 = (n_local, -(-ak.shape[0] // scfg.n_lanes))
-                at3[g3] = at3.get(g3, 0) + got[0]
-                at2[g2] = at2.get(g2, 0) + got[1]
+                c[1] += k3.launches - before[0]
+                c[2] += k2.launches - before[1]
             return out
 
         self.inner = inner
@@ -1499,13 +1612,6 @@ class PositionLaunches:
                      f"with {c[1]} K3 and {c[2]} K2 launches, for {w} "
                      "lane-work ticks")
         return got
-
-    def shapes(self):
-        """The launches by kernel setting, for a cell's record:
-        (K3 [[lane geometry, grid, launches]], K2 [[rows, smax,
-        launches]])."""
-        return ([[g, l, n] for (g, l), n in self.k3.items()],
-                [[l, n_, k] for (l, n_), k in self.k2.items()])
 
 
 def host_and_event_us(eng, state, rows):
@@ -1541,7 +1647,8 @@ def dist_pair(factory, n_devices, per_device, mesh, **spec):
     return engines
 
 
-def dist_path(args, factory, config, pq, shq, dq, ops, counters):
+def dist_path(args, factory, config, pq, shq, dq, ops, counters, lt,
+              bitonic):
     """9a.  Phase 7's cells (fill, mix and at w4096 the quiet ticks)
     through the dist engine at D=2 x l=4 (both positions on the card) and
     D=1 x l=8, each beside its "torch" twin and the sharded L=8 cuda
@@ -1574,6 +1681,7 @@ def dist_path(args, factory, config, pq, shq, dq, ops, counters):
         ticks = sh_work = 0
         marks = shq.lane_work_marks(s_sh)
         results = {}
+        sl = SettingLaunches(lt, bitonic)
         with PositionLaunches(dq, counters) as pl:
             for part, rows in parts:
                 if part == "mix":     # the timings start from the fill
@@ -1586,7 +1694,8 @@ def dist_path(args, factory, config, pq, shq, dq, ops, counters):
                     marks, before = shq.lane_work_marks(s_sh), marks
                     sh_work += marks > before
                     for name, (e_c, e_t) in meshes.items():
-                        s_c, r_c = e_c.tick(states[name][0], *batch)
+                        with sl:      # the dist engines' launches only
+                            s_c, r_c = e_c.tick(states[name][0], *batch)
                         s_t, r_t = e_t.tick(states[name][1], *batch)
                         states[name] = (s_c, s_t)
                         results[name] = r_c
@@ -1611,6 +1720,8 @@ def dist_path(args, factory, config, pq, shq, dq, ops, counters):
                                   .lanes_per_device, pair[0].work_ticks)
                    for name, pair in meshes.items()}
         dist_k3 = sum(c[1] for cs in per_pos.values() for c in cs)
+        sl.check(cell, dist_k3, sum(c[2] for cs in per_pos.values()
+                                    for c in cs))
         if launches["fused_tick_mid"] != sh_work + dist_k3:
             fail(f"{cell}: {launches['fused_tick_mid']} K3 launches, "
                  f"expected {sh_work} (sharded) + {dist_k3} (positions)")
@@ -1632,7 +1743,7 @@ def dist_path(args, factory, config, pq, shq, dq, ops, counters):
                    per_position={n: [dict(calls=c[0], k3=c[1], k2=c[2])
                                      for c in cs]
                                  for n, cs in per_pos.items()},
-                   shapes=pl.shapes(), worst_rank=cons.worst,
+                   shapes=sl.shapes(), worst_rank=cons.worst,
                    us_per_tick_host_and_events=us)
         print(f"dist_path {json.dumps(rec)}", flush=True)
         out[cell] = rec
@@ -1649,8 +1760,8 @@ def resident_pairs(ops, eng, state):
     return torch.sort(packed_pairs(ops, keys[live], vals[live])).values
 
 
-def kill_path(args, factory, config, pq, dq, ops, counters, at=10,
-              after=30):
+def kill_path(args, factory, config, pq, dq, ops, counters, lt, bitonic,
+              at=10, after=30):
     """9b.  Phase 7's w4096 stream through dist D=2 x l=4 (both on the
     card) with ``spare_devices=1``: position 1 is removed at tick ``at``
     (``remove_device``: drain, fold, re-insert), then ``after`` more
@@ -1673,7 +1784,8 @@ def kill_path(args, factory, config, pq, dq, ops, counters, at=10,
     for w in counters.values():
         w.launches = 0
     work = [0, 0]
-    with PositionLaunches(dq, counters) as pl:
+    with PositionLaunches(dq, counters) as pl, SettingLaunches(
+            lt, bitonic) as sl:
         for t in range(rows[0].shape[0]):
             if t == at:
                 before = resident_pairs(ops, q, state)
@@ -1697,12 +1809,13 @@ def kill_path(args, factory, config, pq, dq, ops, counters, at=10,
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in counters.items()}
     got = pl.check("kill", 4, [work[0] + q.work_ticks[0], work[1]])
+    sl.check("kill", launches["fused_tick_mid"], launches["bitonic_sort_kvf"])
     rec = dict(cell="dist_kill_w4096", device=card(), killed_at=at,
                resident_at_kill=int(before.numel()),
                shed_after_kill=lane_drops(state),
                ticks=int(rows[0].shape[0]), launches=launches,
                per_position=[dict(calls=c[0], k3=c[1], k2=c[2])
-                             for c in got], shapes=pl.shapes(),
+                             for c in got], shapes=sl.shapes(),
                worst_rank=cons.worst)
     print(f"kill_path {json.dumps(rec)}", flush=True)
     return rec
@@ -1723,6 +1836,12 @@ SERVE_CELLS = {
 }
 SERVE_NARROW = dict(width=64, lanes_per_device=2, n_slots=8, depth_cap=48)
 SERVE_WIDE = dict(width=1024, lanes_per_device=4, n_slots=128)
+#: the queues of repro_torch.examples.serve_requests: main (one position)
+#: and main_mesh on two positions with one spare (a kill scheduled)
+SERVE_EXAMPLE = dict(n_devices=1, lanes_per_device=4, width=64, n_slots=8,
+                     depth_cap=48)
+MESH_EXAMPLE = dict(n_devices=2, lanes_per_device=2, width=128, n_slots=32,
+                    spare_devices=1, depth_cap=192, preroute="on")
 WIDE_CELLS = {
     "serve_wide_steady": dict(rho=0.7, pattern="poisson", ticks=300),
     "serve_wide_chaos": dict(rho=0.9, pattern="poisson", ticks=300,
@@ -1748,7 +1867,8 @@ def serve_checks(cell, eng, rec, served_seen):
              f"{eng.policy.depth_cap}")
 
 
-def serving_path(args, serving, parse_chaos, dq, counters, bench):
+def serving_path(args, serving, parse_chaos, dq, counters, bench, lt,
+                 bitonic):
     """9c.  Each cell through ``repro_torch.serving.build_engine`` on
     two positions of the card: every tick the checks of
     :func:`serve_checks`; then the drain to empty, the retry flush and the
@@ -1773,7 +1893,8 @@ def serving_path(args, serving, parse_chaos, dq, counters, bench):
         for w in counters.values():
             w.launches = 0
         served, profile, spent, t = set(), None, 0.0, 0
-        with PositionLaunches(dq, counters) as pl:
+        with PositionLaunches(dq, counters) as pl, SettingLaunches(
+                lt, bitonic) as sl:
             while t < ticks:
                 if t == 50 and cell.endswith("steady"):   # ticks 50-99
                     profile = device_profile(lambda: serve_checks(
@@ -1807,6 +1928,7 @@ def serving_path(args, serving, parse_chaos, dq, counters, bench):
             fail(f"{cell}: K3 {launches['fused_tick_mid']} and K2 "
                  f"{launches['bitonic_sort_kvf']} launches, {k3} / {k2} "
                  f"inside the positions' {calls} lane-work runs")
+        sl.check(cell, k3, k2)
         n_timed = ticks - (50 if profile is not None else 0)
         rec = dict(cell=cell, device=card(), ticks=ticks, drain_ticks=drain,
                    arrivals=r["arrivals"], served=r["served"],
@@ -1815,7 +1937,7 @@ def serving_path(args, serving, parse_chaos, dq, counters, bench):
                    depth_cap=r["depth_cap"], p50=r["p50"], p99=r["p99"],
                    p999=r["p999"], live_devices=r["live_devices"],
                    bench_pq=bench.get(cell), k3=k3, k2=k2,
-                   shapes=pl.shapes(),
+                   shapes=sl.shapes(),
                    us_per_serving_tick=spent / n_timed * 1e6,
                    profile=profile)
         print(f"serving_path {json.dumps(rec)}", flush=True)
@@ -1825,19 +1947,57 @@ def serving_path(args, serving, parse_chaos, dq, counters, bench):
     return out
 
 
-def serving_kernels(records, records_k3, dist, kill, served):
-    """The kernels line's entries of phase 9: per group of cells, one K3
-    row per lane geometry and grid and one K2 row per router shape, each
-    with the launches made at that setting and the error and timings
-    phases 3 and 6 took at the same setting.  A setting with launches
-    that neither phase held against its plain version fails the run."""
+def held_settings(records, records_k3):
+    """The settings phases 3 and 6 held against their plain versions: K3
+    records by (lane geometry, grid), K2 records by [rows, width]."""
     k3_at, k2_at = {}, {}
-    for name, r in records_k3.items():
+    for r in records_k3.values():
         k3_at.setdefault((r["geometry"], r["lanes"]), r)
     for label, r in records.items():
         m = re.fullmatch(r"sort_kvf .*\[(\d+), (\d+)\] uniform", label)
         if m:
             k2_at.setdefault((int(m[1]), int(m[2])), r)
+    return k3_at, k2_at
+
+
+def setting_kernels(group, k3, k2, held):
+    """The kernels line's entries of one group of runs: one K3 row per
+    lane geometry and grid (``k3[(geometry, grid)]`` launches) and one K2
+    row per router shape (``k2[(rows, width)]``), each with the launches
+    made at that setting and the error and timings phases 3 and 6 took
+    at the same setting.  A setting with launches that neither phase held
+    against its plain version fails the run."""
+    k3_at, k2_at = held
+    kernels = []
+    for (g, l), n in k3.items():
+        r = k3_at.get((g, l))
+        if r is None:
+            fail(f"{group}: {n} K3 launches at grid {l} on lanes {g}, a "
+                 "setting phase 3 did not hold against its plain version")
+        kernels.append(dict(
+            name=f"lane_tick[{group} {r['setting']}]", route="cuda",
+            source="src/repro_torch/kernels/csrc/lane_tick.cu",
+            replaces="src/repro/kernels/lane_tick.py:185",
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by="bytes", library_ms=None))
+    for (l, n_), n in k2.items():
+        r = k2_at.get((l, n_))
+        if r is None:
+            fail(f"{group}: {n} K2 launches on [{l}, {n_}] rows, a shape "
+                 "phase 6 did not hold against its plain version")
+        kernels.append(dict(
+            name=f"bitonic_sort_kvf[router {group} [{l}, {n_}]]",
+            route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
+            replaces="src/repro/kernels/bitonic.py:89",
+            launches=n, max_abs_err=r["max_abs_err"],
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}))
+    return kernels
+
+
+def serving_kernels(held, dist, kill, served):
+    """The kernels line's entries of phase 9, per group of cells."""
     kernels = []
     for group, recs in (
             ("dist_w4096_des", [dist["dist_w4096_des"]]),
@@ -1852,31 +2012,402 @@ def serving_kernels(records, records_k3, dist, kill, served):
                 k3[g, l] = k3.get((g, l), 0) + n
             for l, n, k in at2:
                 k2[l, n] = k2.get((l, n), 0) + k
-        for (g, l), n in k3.items():
-            r = k3_at.get((g, l))
-            if r is None:
-                fail(f"{group}: {n} K3 launches at grid {l} on lanes {g}, a "
-                     "setting phase 3 did not hold against its plain version")
-            kernels.append(dict(
-                name=f"lane_tick[{group} {r['setting']}]", route="cuda",
-                source="src/repro_torch/kernels/csrc/lane_tick.cu",
-                replaces="src/repro/kernels/lane_tick.py:185",
-                launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
-                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                bound_by="bytes", library_ms=None))
-        for (l, n_), n in k2.items():
-            r = k2_at.get((l, n_))
-            if r is None:
-                fail(f"{group}: {n} K2 launches on [{l}, {n_}] rows, a shape "
-                     "phase 6 did not hold against its plain version")
-            kernels.append(dict(
-                name=f"bitonic_sort_kvf[router {group} [{l}, {n_}]]",
-                route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
-                replaces="src/repro/kernels/bitonic.py:89",
-                launches=n, max_abs_err=r["max_abs_err"],
-                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}))
+        kernels += setting_kernels(group, k3, k2, held)
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the queue's other users (the priority sampler, the examples)
+# and the roofline
+# ---------------------------------------------------------------------------
+
+#: 10a: the sampler's groups, steps and batch, at PRODUCTION
+SAMPLER_GROUPS, SAMPLER_STEPS, SAMPLER_K = 1024, 200, 256
+
+
+class OracleFeed:
+    """The heapq oracle beside every sampler queue's ticks: while active,
+    ``_HostPQ.submit_and_acquire`` (the class's, wrapped) feeds each
+    tick's arrivals and removals to a ``RefPQ`` per queue and fails when
+    the gids served do not carry the oracle's smallest keys."""
+
+    def __init__(self, host_cls, RefPQ):
+        self.host_cls, self.RefPQ = host_cls, RefPQ
+        self.refs, self.keys = {}, {}
+        self.checked = 0
+
+    def __enter__(self):
+        inner = self.saved = self.host_cls.submit_and_acquire
+        feed = self
+
+        def checked(host, arrivals, free_slots):
+            out = inner(host, arrivals, free_slots)
+            ref = feed.refs.setdefault(id(host), feed.RefPQ())
+            keys = feed.keys.setdefault(id(host), {})
+            f32 = np.float32([k for _, k in arrivals])
+            for (gid, _), k in zip(arrivals, f32):
+                keys[gid] = k
+            exp = np.sort(np.float32([k for k, _ in ref.tick(
+                f32.tolist(), [g for g, _ in arrivals],
+                min(free_slots, host.cfg.r_max)) if k != np.inf]))
+            got = np.sort(np.float32([keys[g] for g in out]))
+            if not np.array_equal(got, exp):
+                fail(f"sampler: served keys differ from the oracle's "
+                     f"{len(exp)} smallest")
+            feed.checked += 1
+            return out
+
+        self.host_cls.submit_and_acquire = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.host_cls.submit_and_acquire = self.saved
+
+
+def sampler_path(args, config, data, priority_sampler, RefPQ, counters,
+                 lt, bitonic):
+    """10a.  ``PrioritySampler(n_groups=1024, cfg=PRODUCTION)`` on the
+    card beside its "torch" twin on the card: 200 steps of
+    ``next_groups(256)``, ``report`` with losses drawn from the seed and
+    ``requeue``.  Every step the two pick the same gids and every tick
+    serves the heapq oracle's smallest keys; the final ``breakdown()``s
+    are equal.  µs per step on the host clock, the two in turns; then a
+    profiled window of 20 more steps of the card's sampler, and from it
+    K3's device ms per launch on this path."""
+    prod = config.PRODUCTION
+    twin_cfg = dataclasses.replace(prod, backend="torch")
+    rng = np.random.default_rng(args.seed + 10)
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    spent = {"cuda": 0.0, "torch": 0.0}
+    with SettingLaunches(lt, bitonic) as sl, OracleFeed(
+            priority_sampler._HostPQ, RefPQ) as feed:
+        samplers = {
+            "cuda": data.PrioritySampler(SAMPLER_GROUPS, cfg=prod,
+                                         seed=args.seed),
+            "torch": data.PrioritySampler(SAMPLER_GROUPS, cfg=twin_cfg,
+                                          seed=args.seed)}
+        if samplers["cuda"].sched.state.seq_keys.device.type != "cuda":
+            fail("sampler: the default device is not the card")
+        for step in range(SAMPLER_STEPS):
+            losses = rng.exponential(2.0, SAMPLER_K)
+            picked = {}
+            order = ("cuda", "torch") if step % 2 == 0 else ("torch", "cuda")
+            for name in order:
+                s = samplers[name]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gids = s.next_groups(SAMPLER_K)
+                for g, loss in zip(gids, losses):
+                    s.report(g, float(loss))
+                s.requeue(gids)
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                picked[name] = gids
+            if picked["cuda"] != picked["torch"]:
+                fail(f"sampler step {step}: the card's groups differ from "
+                     "the torch twin's")
+            if len(picked["cuda"]) != SAMPLER_K:
+                fail(f"sampler step {step}: {len(picked['cuda'])} groups")
+        torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in counters.items()}
+    n_ticks = 1 + 2 * SAMPLER_STEPS
+    brk = {n: s.breakdown() for n, s in samplers.items()}
+    if brk["cuda"] != brk["torch"]:
+        fail(f"sampler: breakdown {brk['cuda']} != the twin's {brk['torch']}")
+    if launches["fused_tick_mid"] != n_ticks or any(
+            v for k, v in launches.items() if k != "fused_tick_mid"):
+        fail(f"sampler: launches {launches}, expected K3 on each of "
+             f"{n_ticks} ticks and nothing else")
+    if feed.checked != 2 * n_ticks:
+        fail(f"sampler: the oracle saw {feed.checked} ticks")
+    cuda = samplers["cuda"]
+
+    def step():
+        gids = cuda.next_groups(SAMPLER_K)
+        for g in gids:
+            cuda.report(g, 1.0)
+        cuda.requeue(gids)
+    # the profile's "tick" is a step here: two K3 launches
+    profile = device_profile(step, 20)
+    rec = dict(cell="sampler_production", device=card(),
+               groups=SAMPLER_GROUPS, steps=SAMPLER_STEPS, k=SAMPLER_K,
+               launches=launches, breakdown=brk["cuda"],
+               us_per_step={n: v / SAMPLER_STEPS * 1e6
+                            for n, v in spent.items()},
+               profile_per_step=profile,
+               k3_ms_per_launch=profile and sum(
+                   profile["lane_tick_us_per_tick"].values()) / 2e3,
+               cfg=prod, k3=sl.k3, k2=sl.k2)
+    print(f"sampler_path {json.dumps({k: v for k, v in rec.items() if k not in ('cfg', 'k3', 'k2')})}",
+          flush=True)
+    return rec
+
+
+def _same(a, b):
+    """Equal example outputs: arrays bit for bit, floats by bits,
+    everything else by ==; ``us_per_tick`` (a host time) is skipped."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            _same(a[k], b[k]) for k in a if k != "us_per_tick")
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(
+            a.view(np.int32) if a.dtype == np.float32 else a,
+            b.view(np.int32) if b.dtype == np.float32 else b)
+    if isinstance(a, float):
+        return np.float64(a).tobytes() == np.float64(b).tobytes()
+    return a == b
+
+
+#: 10b: the mesh example's positions and kill
+MESH_CHAOS = "kill:1@8"
+
+
+def examples_path(ex, counters, lt, bitonic):
+    """10b.  Each example module's ``main`` on the card under the "cuda"
+    backend (its own asserts hold), beside its "torch" twin on the card
+    where it has one (event_sim, quickstart, serve_requests.main: every
+    number equal); ``serve_requests.main_mesh`` on two positions of the
+    card with a kill of position 1 at t=8; ``dev_check_pq`` under "cuda"
+    must print ALL OK.  Launches counted per example and setting."""
+    out = {}
+    runs = (
+        ("event_sim", lambda b: ex.event_sim.main("cuda", b), True),
+        ("quickstart", lambda b: ex.quickstart.main("cuda", b), True),
+        ("serve_requests main",
+         lambda b: ex.serve_requests.main("cuda", b), True),
+        ("serve_requests main_mesh",
+         lambda b: ex.serve_requests.main_mesh(
+             TWO_ON_ONE, chaos=MESH_CHAOS, device="cuda", backend=b),
+         False),
+        ("dev_check_pq", lambda b: ex.dev_check_pq.main("cuda", b), False))
+    for name, run, twin in runs:
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with SettingLaunches(lt, bitonic) as sl:
+            got = run("cuda")
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in counters.items()}
+        if twin and not _same(got, run("torch")):
+            fail(f"{name}: the cuda run's numbers differ from the torch "
+                 "twin's on the card")
+        if launches["merge_sorted_kvf"] or launches["radix_select_threshold"]:
+            fail(f"{name}: launched K1 or K4: {launches}")
+        sl.check(name, launches["fused_tick_mid"],
+                 launches["bitonic_sort_kvf"])
+        out[name] = dict(result=got, launches=launches, k3=sl.k3, k2=sl.k2,
+                         seconds=seconds)
+        print(f"example {name}: {seconds:.1f} s, launches {launches}",
+              flush=True)
+    mesh = out["serve_requests main_mesh"]["result"]
+    if mesh["removed"] != [1] or mesh["report"]["live_devices"] != [0]:
+        fail(f"main_mesh: the kill did not fire as scheduled: {mesh}")
+    if not out["dev_check_pq"]["result"]["ok"]:
+        fail("dev_check_pq: not ALL OK")
+    for name in ("event_sim", "quickstart", "serve_requests main",
+                 "dev_check_pq"):
+        if not out[name]["launches"]["fused_tick_mid"]:
+            fail(f"{name}: never launched the lane tick")
+    for name in ("quickstart", "serve_requests main"):
+        if not out[name]["launches"]["bitonic_sort_kvf"]:
+            fail(f"{name}: never launched the router's sort")
+    return out
+
+
+def roofline_path(w4096_run, prod_run, sharded, sampler, records,
+                  records_k3, traffic, record_from_traffic):
+    """10c.  A roofline record per engine cell of phases 4, 5 and 7 and
+    for the sampler, from their timings and ``traffic``'s count of one
+    tick; each kernel setting of phases 3 and 6 with its bound from
+    ``traffic`` beside its own buffers' (the yardstick before).  Fails if
+    any measured time falls under its bound."""
+    cells = []
+    for cell, run, count in (
+            ("w4096_p50_des", w4096_run, traffic.pqe_tick(w4096_run["cfg"])),
+            ("production_p50_uniform", prod_run,
+             traffic.pqe_tick(prod_run["cfg"])),
+            *((c, r, traffic.sharded_tick(r["cfg"]))
+              for c, r in sharded.items())):
+        t = run["timing"]
+        for us in t["us_per_tick_cuda"]:
+            cells.append((cell, record_from_traffic(
+                count, us * 1e-6 * t["ticks"], t["ticks"], "cuda")))
+    # a sampler step is two ticks
+    count = traffic.pqe_tick(sampler["cfg"])
+    cells.append(("sampler_production", record_from_traffic(
+        count, sampler["us_per_step"]["cuda"] * 1e-6 * sampler["steps"],
+        2 * sampler["steps"], "cuda")))
+    for cell, rec in cells:
+        print(f"roofline {cell} {json.dumps(rec)}", flush=True)
+        if rec["frac_bound"] > 1.0:
+            fail(f"{cell}: measured time under its traffic bound: {rec}")
+    yardstick = {}
+    for phase, recs in (("3", records_k3.values()), ("6", records.values())):
+        for r in recs:
+            name = r.get("setting") or r["op"]
+            yardstick[f"{phase} {name}"] = dict(
+                bytes=r["bytes"], buffer_bytes=r["buffer_bytes"],
+                bound_ms=r["bound_ms"])
+            if r["ms"] is not None and r["ms"] < r["bound_ms"]:
+                fail(f"{name}: {r['ms']} ms, under its bound "
+                     f"{r['bound_ms']} ms")
+    print(f"yardstick {json.dumps(yardstick)}", flush=True)
+    return cells
+
+
+def sampler_stream(args, priority_sampler, cfg, steps):
+    """10a's ticks as K3 input rows: the first ``steps`` steps of its
+    sampler (seed and losses as 10a draws them) and one more
+    ``next_groups``, each tick's arrivals and removeMin count recorded
+    off a sampler of config ``cfg`` on the card."""
+    ticks = []
+    host = priority_sampler._HostPQ
+    inner = host.submit_and_acquire
+
+    def recorded(h, arrivals, free_slots):
+        ticks.append((arrivals, min(free_slots, h.cfg.r_max)))
+        return inner(h, arrivals, free_slots)
+
+    host.submit_and_acquire = recorded
+    try:
+        s = priority_sampler.PrioritySampler(SAMPLER_GROUPS, cfg=cfg,
+                                             seed=args.seed)
+        rng = np.random.default_rng(args.seed + 10)
+        for _ in range(steps):
+            losses = rng.exponential(2.0, SAMPLER_K)
+            gids = s.next_groups(SAMPLER_K)
+            for g, loss in zip(gids, losses):
+                s.report(g, float(loss))
+            s.requeue(gids)
+        s.next_groups(SAMPLER_K)
+    finally:
+        host.submit_and_acquire = inner
+    shape = (len(ticks), cfg.a_max)
+    ak = np.full(shape, np.inf, np.float32)
+    av = np.full(shape, -1, np.int32)
+    mask = np.zeros(shape, bool)
+    for t, (arrivals, _) in enumerate(ticks):
+        ak[t, :len(arrivals)] = [k for _, k in arrivals]
+        av[t, :len(arrivals)] = [g for g, _ in arrivals]
+        mask[t, :len(arrivals)] = True
+    return to_device((ak, av, mask, np.int32([n for _, n in ticks])))
+
+
+def kernel_settings_path(args, config, factory, serving, examples,
+                         priority_sampler, lt, pq, traffic):
+    """Phase 3: the lane-tick kernel against its plain version at every
+    lane geometry and grid a later phase launches it at.  Returns
+    {setting: record}."""
+    repair_cfg = config.PQConfig(    # every pass fires at this geometry
+        a_max=64, r_max=64, seq_cap=512, n_buckets=4, bucket_cap=8,
+        detach_min=4, detach_max=64, detach_init=8, chop_patience=3,
+        backend="torch")
+    w4096 = factory.resolved_base(
+        factory.EngineSpec(engine="pqe", width=4096, backend="torch"))
+    prod = factory.resolved_base(factory.EngineSpec(
+        engine="pqe", width=1024, base=config.PRODUCTION, backend="torch"))
+    records_k3 = {}
+
+    def repair_streams(lanes, ties=False):
+        return [to_device(batch_rows(64, *repair_stream(
+            np.random.default_rng(args.seed + 100 + i), 64, 26, ties)))
+            for i in range(lanes)]
+
+    def mix_streams(lanes, width, warm_ticks, ticks, dist):
+        out = []
+        for i in range(lanes):
+            rng = np.random.default_rng(args.seed + 200 + i)
+            keys = [rng.uniform(0, KEY_HI, width).astype(np.float32)
+                    for _ in range(warm_ticks)]
+            mix, rms, _ = mix_keys(rng, width, 0.5, ticks, dist)
+            out.append(to_device(batch_rows(width, keys + mix,
+                                            [0] * warm_ticks + rms)))
+        return out
+
+    def hold(name, cfg, streams, check_from, head_tile=None):
+        records_k3[name] = kernel_vs_plain(name, cfg, streams, check_from,
+                                           lt, pq, traffic, head_tile)
+        return records_k3[name]
+
+    for lanes in (1, 4):
+        hold(f"repair_L{lanes}", repair_cfg, repair_streams(lanes), 0)
+        hold(f"repair_L{lanes}_tile64", repair_cfg, repair_streams(lanes),
+             0, head_tile=64)
+    for lanes in (1, 3):
+        hold(f"duplicates_L{lanes}_tile64", repair_cfg,
+             repair_streams(lanes, ties=True), 0, head_tile=64)
+    hold("w4096_L1", w4096, mix_streams(1, 4096, 1, 12, "des"), 1)
+    hold("w4096_L8", w4096, mix_streams(8, 4096, 1, 6, "des"), 1)
+    hold("production_L1", prod, mix_streams(1, 1024, 16, 6, "uniform"), 16)
+    # the lane geometries of phase 7's cells, all eight lanes in one launch
+    for cell, spec, dist, warm in (
+            ("sharded_w4096", dict(width=4096), "des", 1),
+            ("sharded_production", dict(width=1024, base=config.PRODUCTION),
+             "uniform", 16)):
+        lane = factory.make_engine(factory.EngineSpec(
+            engine="sharded", lanes=8, backend="torch", **spec)).cfg.lane
+        hold(f"{cell}_L8", lane, mix_streams(8, lane.a_max, warm, 6, dist),
+             warm)
+        # phase 9a's D=2 positions: four of these lanes a launch
+        hold(f"{cell}_L4", lane, mix_streams(4, lane.a_max, warm, 6, dist),
+             warm)
+    # the adaptive engine's fold-headroom lane geometry (min_lanes=1) of
+    # phase 8c, at both lane counts it runs
+    fold_lane = factory.make_engine(factory.EngineSpec(
+        engine="sharded", width=4096, lanes=8, min_lanes=1,
+        backend="torch")).cfg.lane
+    for lanes in (8, 1):
+        hold(f"adaptive_fold_L{lanes}", fold_lane,
+             mix_streams(lanes, fold_lane.a_max, 1, 6, "des"), 1)
+
+    # phase 9's other lane geometries: the kill cell's spare-sized lanes
+    # (grid 4), the serving cells' at width 64 (grid 2) and 1024 (grid 4),
+    # each without and with a spare position (the chaos cells)
+    kill_lane = factory.make_engine(factory.EngineSpec(
+        engine="dist", width=4096, lanes=8, n_devices=2, lanes_per_device=4,
+        spare_devices=1, backend="torch"), device="cpu").cfg.shard.lane
+    hold("dist_kill_L4", kill_lane, mix_streams(4, kill_lane.a_max, 1, 6,
+                                                "des"), 1)
+
+    def serving_lane(**kw):
+        return serving.build_engine(device="cpu", backend="torch", **{
+            k: v for k, v in kw.items() if k != "depth_cap"}
+        ).queue.queue.cfg.shard.lane
+
+    for setting, kw, lanes in (("serve64_L2", SERVE_NARROW, 2),
+                               ("serve1024_L4", SERVE_WIDE, 4)):
+        for spare, suffix in ((0, ""), (1, "_spare")):
+            lane = serving_lane(n_devices=2, spare_devices=spare, **kw)
+            hold(setting + suffix, lane,
+                 mix_streams(lanes, lane.a_max, 1, 6, "des"), 1)
+
+    # phase 10's settings: the sampler's default queue (PRODUCTION is
+    # held above), the examples' queues and lanes, the dev check's two
+    # configs
+    for name, cfg in (("sampler_default_L1", priority_sampler.DEFAULT_CFG),
+                      ("event_sim_L1", examples.event_sim.CFG),
+                      ("quickstart_L1", examples.quickstart.BASE),
+                      ("dev_check_small_L1", config.SMALL),
+                      ("dev_check_tiny_L1", examples.dev_check_pq.TINY)):
+        cfg = dataclasses.replace(cfg, backend="torch")
+        hold(name, cfg, mix_streams(1, cfg.a_max, 1, 6, "des"), 1)
+    for name, lane, lanes in (
+            ("quickstart_sharded_L4", factory.make_engine(factory.EngineSpec(
+                engine="sharded", width=64, lanes=4, backend="torch"),
+                device="cpu").cfg.lane, 4),
+            ("serve_example_L4", serving_lane(**SERVE_EXAMPLE), 4),
+            ("mesh_example_spare_L2", serving_lane(**MESH_EXAMPLE), 2)):
+        hold(name, lane, mix_streams(lanes, lane.a_max, 1, 6, "des"), 1)
+    # 10a's own ticks at PRODUCTION (1024 residents, steps of 256): the
+    # sampler's kernel row reads this record, not production_L1's
+    prod = dataclasses.replace(config.PRODUCTION, backend="torch")
+    hold("sampler_production_L1", prod,
+         [sampler_stream(args, priority_sampler, prod, 3)], 1)
+    return records_k3
 
 
 def main() -> None:
@@ -1890,7 +2421,12 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import quality, serving
+    from repro_torch import data, quality, serving
+    from repro_torch import examples
+    from repro_torch.data import priority_sampler
+    from repro_torch.examples import (dev_check_pq, event_sim,  # noqa: F401
+                                      quickstart, serve_requests)
+    from repro_torch.roofline import record_from_traffic, traffic
     from repro_torch.core import adaptive, config, factory, pqueue as pq
     from repro_torch.core import distributed as dq
     from repro_torch.core import sharded as shq
@@ -1923,92 +2459,9 @@ def main() -> None:
                 print(f"build {kname}: {line.strip()}", flush=True)
 
     # 3. kernel vs plain version
-    repair_cfg = config.PQConfig(    # every pass fires at this geometry
-        a_max=64, r_max=64, seq_cap=512, n_buckets=4, bucket_cap=8,
-        detach_min=4, detach_max=64, detach_init=8, chop_patience=3,
-        backend="torch")
-    w4096 = factory.resolved_base(
-        factory.EngineSpec(engine="pqe", width=4096, backend="torch"))
-    prod = factory.resolved_base(factory.EngineSpec(
-        engine="pqe", width=1024, base=config.PRODUCTION, backend="torch"))
-    records_k3 = {}
-
-    def repair_streams(lanes, ties=False):
-        return [to_device(batch_rows(64, *repair_stream(
-            np.random.default_rng(args.seed + 100 + i), 64, 26, ties)))
-            for i in range(lanes)]
-
-    def mix_streams(lanes, width, warm_ticks, ticks, dist):
-        out = []
-        for i in range(lanes):
-            rng = np.random.default_rng(args.seed + 200 + i)
-            keys = [rng.uniform(0, KEY_HI, width).astype(np.float32)
-                    for _ in range(warm_ticks)]
-            mix, rms, _ = mix_keys(rng, width, 0.5, ticks, dist)
-            out.append(to_device(batch_rows(width, keys + mix,
-                                            [0] * warm_ticks + rms)))
-        return out
-
-    for lanes in (1, 4):
-        kernel_vs_plain(f"repair_L{lanes}", repair_cfg,
-                        repair_streams(lanes), 0, lt, pq)
-        kernel_vs_plain(f"repair_L{lanes}_tile64", repair_cfg,
-                        repair_streams(lanes), 0, lt, pq, head_tile=64)
-    for lanes in (1, 3):
-        kernel_vs_plain(f"duplicates_L{lanes}_tile64", repair_cfg,
-                        repair_streams(lanes, ties=True), 0, lt, pq,
-                        head_tile=64)
-    records_k3["w4096"] = kernel_vs_plain(
-        "w4096_L1", w4096, mix_streams(1, 4096, 1, 12, "des"), 1, lt, pq)
-    kernel_vs_plain("w4096_L8", w4096, mix_streams(8, 4096, 1, 6, "des"),
-                    1, lt, pq)
-    records_k3["production"] = kernel_vs_plain(
-        "production_L1", prod, mix_streams(1, 1024, 16, 6, "uniform"),
-        16, lt, pq)
-    # the lane geometries of phase 7's cells, all eight lanes in one launch
-    for cell, spec, dist, warm in (
-            ("sharded_w4096", dict(width=4096), "des", 1),
-            ("sharded_production", dict(width=1024, base=config.PRODUCTION),
-             "uniform", 16)):
-        lane = factory.make_engine(factory.EngineSpec(
-            engine="sharded", lanes=8, backend="torch", **spec)).cfg.lane
-        records_k3[cell] = kernel_vs_plain(
-            f"{cell}_L8", lane, mix_streams(8, lane.a_max, warm, 6, dist),
-            warm, lt, pq)
-        # phase 9a's D=2 positions: four of these lanes a launch
-        records_k3[f"{cell}_L4"] = kernel_vs_plain(
-            f"{cell}_L4", lane, mix_streams(4, lane.a_max, warm, 6, dist),
-            warm, lt, pq)
-    # the adaptive engine's fold-headroom lane geometry (min_lanes=1) of
-    # phase 8c, at both lane counts it runs
-    fold_lane = factory.make_engine(factory.EngineSpec(
-        engine="sharded", width=4096, lanes=8, min_lanes=1,
-        backend="torch")).cfg.lane
-    for lanes in (8, 1):
-        records_k3[f"fold_L{lanes}"] = kernel_vs_plain(
-            f"adaptive_fold_L{lanes}", fold_lane,
-            mix_streams(lanes, fold_lane.a_max, 1, 6, "des"), 1, lt, pq)
-
-    # phase 9's other lane geometries: the kill cell's spare-sized lanes
-    # (grid 4), the serving cells' at width 64 (grid 2) and 1024 (grid 4),
-    # each without and with a spare position (the chaos cells)
-    kill_lane = factory.make_engine(factory.EngineSpec(
-        engine="dist", width=4096, lanes=8, n_devices=2, lanes_per_device=4,
-        spare_devices=1, backend="torch"), device="cpu").cfg.shard.lane
-    records_k3["kill_L4"] = kernel_vs_plain(
-        "dist_kill_L4", kill_lane, mix_streams(4, kill_lane.a_max, 1, 6,
-                                               "des"), 1, lt, pq)
-    for setting, kw, lanes in (("serve64_L2", SERVE_NARROW, 2),
-                               ("serve1024_L4", SERVE_WIDE, 4)):
-        for spare, suffix in ((0, ""), (1, "_spare")):
-            lane = serving.build_engine(
-                n_devices=2, device="cpu", backend="torch",
-                spare_devices=spare,
-                **{k: v for k, v in kw.items() if k != "depth_cap"}
-            ).queue.queue.cfg.shard.lane
-            records_k3[setting + suffix] = kernel_vs_plain(
-                setting + suffix, lane,
-                mix_streams(lanes, lane.a_max, 1, 6, "des"), 1, lt, pq)
+    records_k3 = kernel_settings_path(args, config, factory, serving,
+                                      examples, priority_sampler, lt, pq,
+                                      traffic)
 
     # 4-5. the main path through the engine API
     w4096_run = main_path_w4096(args, factory, pq, lt, RefPQ)
@@ -2022,7 +2475,7 @@ def main() -> None:
     t6 = time.perf_counter()
     records, ops_launches = kernel_ops_path(args, w4096_run, prod_run, ops,
                                             pq, wrappers, bitonic,
-                                            radix_select)
+                                            radix_select, traffic)
     print(f"kernel-ops path: {time.perf_counter() - t6:.1f} s", flush=True)
     k2_vs_sort = {r["op"].split(" ", 1)[1]: dict(
         ms=r["ms"], torch_sort_ms=r["library_ms"],
@@ -2053,16 +2506,29 @@ def main() -> None:
 
     # 9. the serving path: the mesh queue, a kill, the request engine
     t9 = time.perf_counter()
-    dist = dist_path(args, factory, config, pq, shq, dq, ops, counters)
-    kill = kill_path(args, factory, config, pq, dq, ops, counters)
+    dist = dist_path(args, factory, config, pq, shq, dq, ops, counters, lt,
+                     bitonic)
+    kill = kill_path(args, factory, config, pq, dq, ops, counters, lt,
+                     bitonic)
     bench = json.loads((ROOT / "BENCH_pq.json").read_text())["results"]
-    served = serving_path(args, serving, parse_chaos, dq, counters, bench)
+    served = serving_path(args, serving, parse_chaos, dq, counters, bench,
+                          lt, bitonic)
     print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+
+    # 10. the queue's other users, and the roofline
+    t10 = time.perf_counter()
+    sampler = sampler_path(args, config, data, priority_sampler, RefPQ,
+                           counters, lt, bitonic)
+    ran = examples_path(examples, counters, lt, bitonic)
+    roofline_path(w4096_run, prod_run, sharded, sampler, records,
+                  records_k3, traffic, record_from_traffic)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
-    for cell, run in (("w4096", w4096_run), ("production", prod_run)):
-        r = records_k3[cell]
+    for cell, run, k3 in (("w4096", w4096_run, "w4096_L1"),
+                          ("production", prod_run, "production_L1")):
+        r = records_k3[k3]
         kernels.append(dict(
             name=f"lane_tick[{cell}]", route="cuda",
             source="src/repro_torch/kernels/csrc/lane_tick.cu",
@@ -2071,9 +2537,9 @@ def main() -> None:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes", library_ms=None))
     for cell, k3, k2 in (
-            ("sharded_w4096_L8_des", "sharded_w4096",
+            ("sharded_w4096_L8_des", "sharded_w4096_L8",
              "sort_kvf sharded L=8 lane batch [8, 512] uniform"),
-            ("sharded_production_L8_uniform", "sharded_production",
+            ("sharded_production_L8_uniform", "sharded_production_L8",
              "sort_kvf sharded L=8 lane batch [8, 128] uniform")):
         run, r = sharded[cell], records_k3[k3]
         kernels.append(dict(
@@ -2095,10 +2561,11 @@ def main() -> None:
     k2_4096 = records["sort_kvf w4096 add batch [1, 4096] uniform"]
     for cell, rec, k3_rows, k2_rows in (
             ("adaptive_w4096_L8_phased", phased,
-             (("pqe/L1", "w4096"), ("sharded/L8", "sharded_w4096")),
+             (("pqe/L1", "w4096_L1"), ("sharded/L8", "sharded_w4096_L8")),
              (("sharded/L8", k2_512),)),
             ("adaptive_w4096_L8_fold", fold,
-             (("sharded/L8", "fold_L8"), ("sharded/L1", "fold_L1")),
+             (("sharded/L8", "adaptive_fold_L8"),
+              ("sharded/L1", "adaptive_fold_L1")),
              (("sharded/L8", k2_512), ("sharded/L1", k2_4096)))):
         for plan, k3 in k3_rows:
             r = records_k3[k3]
@@ -2119,7 +2586,17 @@ def main() -> None:
                 max_abs_err=r["max_abs_err"],
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}))
-    kernels += serving_kernels(records, records_k3, dist, kill, served)
+    held = held_settings(records, records_k3)
+    kernels += serving_kernels(held, dist, kill, served)
+    sampler_k3 = records_k3["sampler_production_L1"]
+    rows = setting_kernels(
+        "sampler PRODUCTION", sampler["k3"], sampler["k2"],
+        ({**held[0], (sampler_k3["geometry"], 1): sampler_k3}, held[1]))
+    for row in rows:     # beside phase 3's time: the path's own, profiled
+        row["path_ms"] = sampler["k3_ms_per_launch"]
+    kernels += rows
+    for name, run in ran.items():
+        kernels += setting_kernels(name, run["k3"], run["k2"], held)
     for kname, wrapper, src, replaces, label in (
             ("K1", "merge_sorted_kvf", "merge_consume.cu",
              "src/repro/kernels/merge_consume.py:119",

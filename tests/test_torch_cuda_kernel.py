@@ -21,17 +21,25 @@ router rows, [8, 4096] and [1, 4096].  Last, the sharded engine at L=2
 and L=4 and the adaptive engine over a stream that switches engines: the
 "cuda" engine equals its "torch" twin bit for bit on every tick, with one
 lane-tick launch per pqe tick and one lane-tick launch and one router
-sort (K2) per sharded tick that does lane work.
+sort (K2) per sharded tick that does lane work.  The priority sampler's
+"cuda" queue picks the groups of its "torch" twin on the card; the
+roofline reads the card's memory, and a lane-tick launch at PRODUCTION
+takes no less than its traffic bound.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import PQConfig, pqueue, sharded
+from repro_torch.core import PRODUCTION, PQConfig, pqueue, sharded
 from repro_torch.core.factory import EngineSpec, make_engine
 from repro_torch.kernels import bitonic, lane_tick, merge_consume
 from repro_torch.kernels import ops, radix_select
+from repro_torch.data import PrioritySampler
+from repro_torch.data.priority_sampler import DEFAULT_CFG
+from repro_torch.roofline import hw, traffic
 
 W = 64
 CFG = PQConfig(a_max=W, r_max=W, seq_cap=512, n_buckets=4, bucket_cap=8,
@@ -393,3 +401,57 @@ def test_adaptive_engine_matches_torch_twin():
          merge_consume.merge_sorted_kvf, radix_select.radix_select_threshold),
         launches))
     assert k3 > 0 and k2 > 0 and k1 == 0 and k4 == 0, (k3, k2, k1, k4)
+
+
+@pytest.mark.gpu
+def test_sampler_cuda_equals_torch_twin_on_card():
+    _need_gpu()
+    twin_cfg = dataclasses.replace(DEFAULT_CFG, backend="torch")
+    before = lane_tick.fused_tick_mid.launches
+    samplers = [PrioritySampler(n_groups=64, ema=0.5, staleness_weight=0.0,
+                                cfg=cfg, device="cuda")
+                for cfg in (DEFAULT_CFG, twin_cfg)]
+    rng = np.random.default_rng(5)
+    for step in range(40):
+        picked = [s.next_groups(16) for s in samplers]
+        assert picked[0] == picked[1], step
+        # half the groups' EMA drops to exactly 0.0: their key is -0.0
+        losses = [-samplers[0].groups[g].ema_loss if rng.random() < 0.5
+                  else float(rng.exponential(2.0)) for g in picked[0]]
+        for s in samplers:
+            for g, loss in zip(picked[0], losses):
+                s.report(g, loss)
+            s.requeue(picked[0])
+    assert samplers[0].breakdown() == samplers[1].breakdown()
+    assert lane_tick.fused_tick_mid.launches - before == 1 + 2 * 40
+
+
+@pytest.mark.gpu
+def test_roofline_reads_the_card_memory():
+    _need_gpu()
+    assert hw.hbm_bytes() == torch.cuda.get_device_properties(0).total_memory
+    assert hw.hbm_bytes() > 16 * 2 ** 30
+
+
+@pytest.mark.gpu
+def test_lane_tick_time_is_not_under_its_traffic_bound():
+    _need_gpu()
+    eng = make_engine(EngineSpec(engine="pqe", width=1024, base=PRODUCTION))
+    cfg, state = eng.cfg, eng.init(seed=0)
+    keys = torch.rand(1024, device="cuda") * 1000
+    vals = torch.arange(1024, dtype=torch.int32, device="cuda")
+    mask = torch.ones(1024, dtype=torch.bool, device="cuda")
+    state, _ = eng.tick(state, keys, vals, mask, 0)
+    lanes = pqueue.tree_map(lambda x: x[None].contiguous(), state)
+    batch = (keys[None], vals[None], mask[None],
+             torch.full((1,), 512, dtype=torch.int32, device="cuda"))
+    lane_tick.fused_tick_mid(cfg, lanes, *batch)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        lane_tick.fused_tick_mid(cfg, lanes, *batch)
+    end.record()
+    torch.cuda.synchronize()
+    assert start.elapsed_time(end) / 20 / 1e3 >= traffic.k3_launch(
+        cfg, 1).bound_s()

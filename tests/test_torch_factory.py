@@ -183,7 +183,21 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.ft.straggler, repro_torch.ft.elastic, "
             "repro_torch.serving, repro_torch.serving.arrivals, "
             "repro_torch.serving.scheduler, repro_torch.serving.engine, "
-            "repro_torch.serving.sla\n"
+            "repro_torch.serving.sla, repro_torch.data, "
+            "repro_torch.data.priority_sampler, repro_torch.data.synthetic, "
+            "repro_torch.examples, repro_torch.examples.event_sim, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.serve_requests, "
+            "repro_torch.examples.dev_check_pq, repro_torch.models, "
+            "repro_torch.models.arch_config, repro_torch.configs, "
+            "repro_torch.configs.registry, repro_torch.configs.shapes, "
+            "repro_torch.roofline, repro_torch.roofline.hw, "
+            "repro_torch.roofline.analysis, repro_torch.roofline.traffic, "
+            "repro_torch.roofline.measure\n"
+            "from repro_torch.configs import ALL_ARCHS, get_config, "
+            "reduced_config\n"
+            "for a in ALL_ARCHS:\n"
+            "    get_config(a), reduced_config(a)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
