@@ -21,7 +21,10 @@ Phases, each fatal on failure:
    queue on 10a's own ticks, the examples' queues and lanes, the dev
    check's two configs); both timed on the device clock, with the
    host-clocked call time beside it, and bounded by what the timed
-   input's work must move (``repro_torch.roofline.traffic``);
+   input's work must move (``repro_torch.roofline.traffic``), on the last
+   checked tick and again on the last where a lane took moveHead and the
+   last where none did, each with one traced launch's span per CTA role
+   of the kernel's one launch (control, head tiles, rows, move tiles);
 4. main path at w4096 — ``make_engine(EngineSpec(engine="pqe",
    width=4096))`` (the "cuda" kernel backend) beside a "torch" twin: warm
    2000 keys, 200 ticks at p_add 0.5 with DES keys, quiet ticks until
@@ -296,6 +299,19 @@ def stack_lanes(pq, states):
     return pq.PQState(*stacked[:n], stats=pq.PQStats(*stacked[n:]))
 
 
+def k3_traffic(traffic, cfg, lanes, batch, got):
+    """What one K3 input's data needs: the adds stored, the removals
+    taken from the store (an add that an immediate or upcoming
+    elimination serves is neither), the slots the kernel's moveHeads
+    detach."""
+    n_elim = int(got.n_imm.sum() + got.n_upc.sum())
+    moved = got.pending.need_move & ~got.pending.need_rebal
+    return traffic.k3_launch(
+        cfg, lanes, adds=int(batch[2].sum()) - n_elim,
+        removals=int(torch.isfinite(got.rm_keys).sum()) - n_elim,
+        detached=int(got.new_len[moved].sum()))
+
+
 def kernel_vs_plain(name, cfg, streams, check_from, lt, pq, traffic,
                     head_tile=None):
     """Drive every lane through its stream with the plain tick; from tick
@@ -304,12 +320,15 @@ def kernel_vs_plain(name, cfg, streams, check_from, lt, pq, traffic,
     wrapper's).  Returns a record with the last input's timings and its
     bound from ``traffic.k3_launch`` on that input's data (the launch's
     own buffers beside it, ``buffer_bytes``: the yardstick before the
-    traffic count)."""
+    traffic count), and under ``by_tick`` the same device times and bound
+    on the last checked tick where a lane took moveHead (``move``) and the
+    last where none did (``no_move``), where the stream has it."""
     head_tile = head_tile or lt.HEAD_TILE
     lanes = len(streams)
     states = [pq.init(cfg, "cuda") for _ in streams]
     ticks = streams[0][0].shape[0]
     err, checked, fired = 0.0, 0, np.zeros(5, np.int64)
+    kinds = {}
     for t in range(ticks):
         batch = [torch.stack([s[f][t] for s in streams]) for f in range(4)]
         if t >= check_from:
@@ -331,36 +350,42 @@ def kernel_vs_plain(name, cfg, streams, check_from, lt, pq, traffic,
                                              p.need_rebal, p.need_move,
                                              p.need_chop)]
             checked += 1
+            moved = bool((p.need_move & ~p.need_rebal).any())
+            kinds["move" if moved else "no_move"] = (stacked, batch, inputs,
+                                                     outs, ws, got)
         states = [pq.tick(cfg, s, *(b[i] for b in batch))[0]
                   for i, s in enumerate(states)]
-    # timings on the last checked input: device time per call (the host's
-    # launch cost out), and the host-clocked call time beside it
-    def kernel():
-        lt.launch(cfg, inputs, outs, ws, head_tile=head_tile)
 
-    def plain():
-        lt.fused_tick_mid_plain(cfg, stacked, *batch)
+    # timings: device time per call (the host's launch cost out), and on
+    # the last checked input the host-clocked call time beside it
+    def timed(stacked, batch, inputs, outs, ws, got):
+        def kernel():
+            lt.launch(cfg, inputs, outs, ws, head_tile=head_tile)
 
-    ms, ms_device_only = device_ms(kernel, 20)
-    plain_ms, plain_device_only = device_ms(plain, 5)
-    # what the timed input's data needs: the adds stored, the removals
-    # taken from the store (an add that an immediate or upcoming
-    # elimination serves is neither), the slots the kernel's moveHeads
-    # detach
-    n_elim = int(got.n_imm.sum() + got.n_upc.sum())
-    moved = got.pending.need_move & ~got.pending.need_rebal
-    count = traffic.k3_launch(
-        cfg, lanes, adds=int(batch[2].sum()) - n_elim,
-        removals=int(torch.isfinite(got.rm_keys).sum()) - n_elim,
-        detached=int(got.new_len[moved].sum()))
+        def plain():
+            lt.fused_tick_mid_plain(cfg, stacked, *batch)
+
+        ms, ms_device_only = device_ms(kernel, 20)
+        # one traced launch, warm: each role's span on the card's clock
+        trace = torch.zeros((lt.launch_plan(cfg, lanes, head_tile).grid,
+                             lt.TRACE_WORDS), dtype=torch.int64,
+                            device=batch[0].device)
+        lt.launch(cfg, inputs, outs, ws, head_tile=head_tile, trace=trace)
+        plain_ms, plain_device_only = device_ms(plain, 5)
+        count = k3_traffic(traffic, cfg, lanes, batch, got)
+        return kernel, plain, dict(
+            ms=ms, ms_device_only=ms_device_only, plain_ms=plain_ms,
+            plain_ms_device_only=plain_device_only, bytes=count.hbm_bytes,
+            bound_ms=count.bound_s() * 1e3, roles=lt.role_spans(trace))
+
+    kernel, plain, last = timed(stacked, batch, inputs, outs, ws, got)
+    by_tick = {kind: timed(*held)[2] for kind, held in sorted(kinds.items())}
     rec = dict(setting=name, lanes=lanes, head_tile=head_tile,
                geometry=lane_geometry(cfg), checked_ticks=checked,
-               fired=fired.tolist(), max_abs_err=err, ms=ms,
-               ms_device_only=ms_device_only, call_ms=cuda_ms(kernel, 20),
-               plain_ms=plain_ms, plain_ms_device_only=plain_device_only,
-               plain_call_ms=cuda_ms(plain, 5), bytes=count.hbm_bytes,
-               bound_ms=count.bound_s() * 1e3, bound_by="bytes",
-               buffer_bytes=nbytes(*inputs, *outs))
+               fired=fired.tolist(), max_abs_err=err, **last,
+               call_ms=cuda_ms(kernel, 20), plain_call_ms=cuda_ms(plain, 5),
+               bound_by="bytes", buffer_bytes=nbytes(*inputs, *outs),
+               by_tick=by_tick)
     print(f"kernel_vs_plain {json.dumps(rec)}", flush=True)
     return rec
 
@@ -421,41 +446,83 @@ def time_ticks(eng, state, rows):
 
 
 #: kernels of the port by profiler name: (group, kernel names)
-KERNEL_GROUPS = (("lane_tick", ("head_kernel", "rows_kernel", "move_kernel")),
+KERNEL_GROUPS = (("lane_tick", ("lane_tick_kernel",)),
                  ("router_sort", ("row_sort_kernel", "sweep_kernel")))
 
 
 def kernel_share(eng, state, rows):
     """:func:`device_profile` over the ticks of ``rows``."""
     ak, av, mask, rm = rows
+    n = ak.shape[0]
     box = [state, 0]
 
-    def step():
-        t = box[1]
+    def step():     # a window profiled again starts again from ``state``
+        t = box[1] % n
+        if t == 0:
+            box[0] = state
         box[0], _ = eng.tick(box[0], ak[t], av[t], mask[t], rm[t])
         box[1] += 1
-    return device_profile(step, ak.shape[0])
+    return device_profile(step, n)
+
+
+#: profiled windows a count may take, and the quiet kept before and after
+#: each window inside the profile.  The profiler can lose a kernel's record
+#: (a full run once showed 39 lane-tick launches for 40 calls of the
+#: sampler's step), never invent one, so a window that
+#: shows fewer lane-tick launches than calls is profiled again, and one
+#: that shows more fails at once.  The quiet keeps the window's first and
+#: last kernels clear of the profile's own start and stop.
+PROFILE_WINDOWS, PROFILE_EDGE_S = 3, 0.02
 
 
 def device_profile(step, n):
     """Device time over ``n`` calls of ``step`` (a tick) under the
-    profiler: the port's kernels by name (the lane tick's three, and
+    profiler: the port's kernels by name (the lane tick's one kernel, and
     K2's, the sharded router's sort), every device event (kernels,
     copies, fills) in all, and both as shares of the window's wall time;
     None when the profiler records no device time.  Only device events
     are summed: a CPU op's self device time repeats the kernels it
-    launched."""
+    launched.  The lane tick's kernel must show one device launch per
+    ``fused_tick_mid`` call in the window: a window short of that is
+    profiled again (``step`` is called ``n`` more times), up to
+    :data:`PROFILE_WINDOWS` windows, each one's (launches, calls) kept
+    under ``windows``; the numbers are the exact window's."""
+    from repro_torch.kernels import lane_tick
+    windows = []
+    for _ in range(PROFILE_WINDOWS):
+        calls0 = lane_tick.fused_tick_mid.launches
+        rec = _profile_window(step, n)
+        calls = lane_tick.fused_tick_mid.launches - calls0
+        if rec is None:
+            return None
+        k3_events = rec["lane_tick_launches"]
+        windows.append([k3_events, calls])
+        if k3_events > calls:
+            fail(f"profile: {k3_events} lane-tick kernel launches on the "
+                 f"device for {calls} fused_tick_mid calls")
+        if k3_events == calls:
+            rec.update(fused_tick_mid_calls=calls, windows=windows)
+            return rec
+    fail(f"profile: lane-tick kernel launches on the device against "
+         f"fused_tick_mid calls, window by window: {windows}")
+
+
+def _profile_window(step, n):
+    """One profiled window of :func:`device_profile`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_EDGE_S)
         t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_EDGE_S)
     ours = {group: {} for group, _ in KERNEL_GROUPS}
+    counts = {group: {} for group, _ in KERNEL_GROUPS}
     others = {}
     total = launches = 0.0
     for ev in prof.key_averages():
@@ -468,6 +535,7 @@ def device_profile(step, n):
         if hit:
             g, k = hit
             ours[g][k] = ours[g].get(k, 0.0) + ev.self_device_time_total / n
+            counts[g][k] = counts[g].get(k, 0) + ev.count
         else:
             others[ev.key[:60]] = ev.self_device_time_total / n
     if total <= 0:
@@ -477,6 +545,7 @@ def device_profile(step, n):
     return dict(ticks=n, wall_us_per_tick=wall_us / n,
                 kernel_us_per_tick=kernel_us,
                 lane_tick_us_per_tick=ours["lane_tick"],
+                lane_tick_launches=sum(counts["lane_tick"].values()),
                 router_sort_us_per_tick=ours["router_sort"],
                 device_us_per_tick=total / n,
                 device_events_per_tick=launches / n,
@@ -1892,14 +1961,17 @@ def serving_path(args, serving, parse_chaos, dq, counters, bench, lt,
         torch.cuda.synchronize()
         for w in counters.values():
             w.launches = 0
-        served, profile, spent, t = set(), None, 0.0, 0
+        served, profile, spent, t, profiled = set(), None, 0.0, 0, 0
         with PositionLaunches(dq, counters) as pl, SettingLaunches(
                 lt, bitonic) as sl:
             while t < ticks:
                 if t == 50 and cell.endswith("steady"):   # ticks 50-99
                     profile = device_profile(lambda: serve_checks(
                         cell, eng, eng.tick(), served), 50)
-                    t += 50
+                    # (and 100-149, ... for a window profiled again)
+                    profiled = 50 * (len(profile["windows"]) if profile
+                                     else 1)
+                    t += profiled
                     continue
                 t0 = time.perf_counter()
                 rec = eng.tick()
@@ -1929,7 +2001,7 @@ def serving_path(args, serving, parse_chaos, dq, counters, bench, lt,
                  f"{launches['bitonic_sort_kvf']} launches, {k3} / {k2} "
                  f"inside the positions' {calls} lane-work runs")
         sl.check(cell, k3, k2)
-        n_timed = ticks - (50 if profile is not None else 0)
+        n_timed = ticks - profiled
         rec = dict(cell=cell, device=card(), ticks=ticks, drain_ticks=drain,
                    arrivals=r["arrivals"], served=r["served"],
                    shed=r["shed"], expired=r["expired"],

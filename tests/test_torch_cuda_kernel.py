@@ -24,7 +24,13 @@ lane-tick launch per pqe tick and one lane-tick launch and one router
 sort (K2) per sharded tick that does lane work.  The priority sampler's
 "cuda" queue picks the groups of its "torch" twin on the card; the
 roofline reads the card's memory, and a lane-tick launch at PRODUCTION
-takes no less than its traffic bound.
+takes no less than its traffic bound.  K3's one launch also on crafted
+rows of every live-count class (0, 1, 2^k, 2^k + 1, full; live INF keys;
+signed-zero ties) at a warp's rows and past them, with lanes that take
+moveHead beside one that does not; at sharded PRODUCTION with one row a
+rows CTA, a grid far past the card's resident CTAs; and twice back to
+back on one counter workspace, then over outputs and scratch filled with
+garbage, the counters zero after each launch.
 """
 
 import dataclasses
@@ -183,6 +189,184 @@ def test_cuda_kernel_at_fold_headroom_geometry(lanes):
         states = [pqueue.tick(cfg, s, *(b[i] for b in batch))[0]
                   for i, s in enumerate(states)]
     assert (fired > 0).all(), fired.tolist()
+
+
+def _card():
+    """The device of the one-launch kernel tests (skips without a card)."""
+    _need_gpu()
+    return torch.device("cuda")
+
+
+def _counters(dev, lanes):
+    """The counter workspace launches over ``lanes`` lanes use on the
+    current stream of ``dev``."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lane_tick.counter_workspace(dev, stream, lanes)
+
+
+def _launched(cfg, state, batch, outs=None, ws=None, **launch_kw):
+    """The kernel's TickMid through ``lane_tick.launch`` (fresh buffers
+    unless given)."""
+    lanes = state.seq_len.shape[0]
+    inputs = lane_tick.kernel_inputs(cfg, state, *batch)
+    if outs is None:
+        outs, ws = lane_tick.kernel_buffers(cfg, lanes, inputs[0].device)
+    lane_tick.launch(cfg, inputs, outs, ws, **launch_kw)
+    return lane_tick.mid_from_outputs(outs, state.stats)
+
+
+def _assert_bit_equal(got, want, label):
+    for i, (g, w) in enumerate(zip(pqueue.tree_leaves(got),
+                                   pqueue.tree_leaves(want))):
+        assert _same_bits(g, w), f"{label}: output leaf {i}"
+
+
+def _stack(states):
+    n = len(pqueue.PQState._fields) - 1
+    leaves = [torch.stack(xs) for xs in zip(
+        *(pqueue.tree_leaves(s) for s in states))]
+    return pqueue.PQState(*leaves[:n], stats=pqueue.PQStats(*leaves[n:]))
+
+
+#: the live counts of the crafted rows: 0, 1, 2^k and 2^k + 1, and full,
+#: at a warp's rows (bucket_cap 128) and past them (1024: a warp sorts up
+#: to 256 live slots, the CTA past that)
+_ROW_COUNTS = {
+    128: [0, 1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 127, 128],
+    1024: [0, 1, 2, 3, 128, 129, 256, 257, 512, 513, 1000, 1024],
+}
+
+
+def _crafted(bucket_cap, dev):
+    """Three lanes over a store whose rows hold the live counts of
+    ``_ROW_COUNTS``, keys in disjoint ordered ranges in shuffled slots:
+    row 0 of signed zeros and ties, the last row ending in live INF keys,
+    duplicates elsewhere.  Lane 0 takes moveHead and extracts every key,
+    lane 1 takes adds and no removal (no moveHead), lane 2 takes
+    moveHead and cuts its extraction inside a row.  Returns (cfg, state,
+    batch)."""
+    counts = _ROW_COUNTS[bucket_cap]
+    nb = len(counts)
+    cfg = PQConfig(a_max=64, r_max=64, seq_cap=4096, n_buckets=nb,
+                   bucket_cap=bucket_cap, detach_min=4, detach_max=4096,
+                   detach_init=64, chop_patience=3, backend="torch")
+    rng = np.random.default_rng(bucket_cap)
+    lanes = []
+    for lane, detach in enumerate((4096, 64, 37)):
+        s = pqueue.init(cfg, dev)
+        bk = np.full((nb, bucket_cap), np.inf, np.float32)
+        bv = np.full((nb, bucket_cap), -1, np.int32)
+        for b, c in enumerate(counts):
+            if b == 0:
+                keys = rng.choice(np.float32([-0.0, 0.0, 0.0, 1.0]), c)
+            else:
+                keys = (b * 1000 + rng.integers(0, 40, c)).astype(np.float32)
+            if b == nb - 1:
+                keys[c // 2:] = np.inf
+            order = rng.permutation(c)
+            bk[b, :c] = keys[order]
+            bv[b, :c] = (lane * 10 ** 6 + b * 10 ** 4 + order).astype(np.int32)
+        spl = np.float32([-np.inf] + [b * 1000 for b in range(1, nb)])
+        live = bk[np.arange(bucket_cap)[None, :] < np.array(counts)[:, None]]
+        t = lambda x, d: torch.tensor(x, dtype=d, device=dev)  # noqa: E731
+        s = s._replace(
+            buckets=t(bk, torch.float32), bvals=t(bv, torch.int32),
+            bcounts=t(counts, torch.int32), splitters=t(spl, torch.float32),
+            par_count=t(sum(counts), torch.int32),
+            par_min=t(live.min(), torch.float32),
+            detach_n=t(detach, torch.int32))
+        lanes.append(s)
+    a = cfg.a_max
+    ak = np.full((3, a), np.inf, np.float32)
+    mask = np.zeros((3, a), bool)
+    ak[1, :40] = rng.integers(1000, nb * 1000, 40).astype(np.float32)
+    mask[1, :40] = True
+    av = np.tile(np.arange(a, dtype=np.int32), (3, 1)) + 7 * 10 ** 6
+    grant = np.int32([64, 0, 5])
+    batch = [torch.from_numpy(x).to(dev) for x in (ak, av, mask, grant)]
+    return cfg, _stack(lanes), batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bucket_cap", sorted(_ROW_COUNTS))
+def test_one_launch_kernel_on_crafted_rows(bucket_cap):
+    """Rows of every live-count class, live INF keys, signed-zero ties;
+    lanes with and without moveHead in one grid: bit-equal to the plain
+    version, one launch per call."""
+    dev = _card()
+    cfg, state, batch = _crafted(bucket_cap, dev)
+    got = _launched_once(lane_tick.fused_tick_mid, cfg, state, *batch)
+    want = lane_tick.fused_tick_mid_plain(cfg, state, *batch)
+    _assert_bit_equal(got, want, f"bucket_cap {bucket_cap}")
+    moved = (got.pending.need_move & ~got.pending.need_rebal).tolist()
+    assert moved == [True, False, True], moved
+    # lane 0 extracted every key, lane 2 stopped inside a row
+    assert int(got.par.par_count[0]) == 0
+    assert 0 < int(got.par.par_count[2]) < int(state.par_count[2])
+
+
+@pytest.mark.gpu
+def test_one_launch_kernel_outgrows_the_resident_ctas():
+    """Sharded PRODUCTION's lanes at L=8 with one row a rows CTA: 8192
+    rows CTAs, far more than the card holds at once; CTAs that wait only
+    wait on earlier tickets, so the launch ends, bit-equal to the plain
+    version on fill ticks and on a moveHead tick."""
+    dev = _card()
+    cfg = make_engine(EngineSpec(engine="sharded", width=1024, lanes=8,
+                                 base=PRODUCTION, backend="torch"),
+                      device="cpu").cfg.lane
+    plan = lane_tick.launch_plan(cfg, 8, rows_per_cta=1)
+    assert plan.role("rows").ctas_per_lane * 8 == 8192
+    assert plan.grid > torch.cuda.get_device_properties(
+        dev).multi_processor_count * 4
+    rng = np.random.default_rng(5)
+    states = [pqueue.init(cfg, dev) for _ in range(8)]
+    a = cfg.a_max
+    moved = 0
+    for t in range(5):
+        fill = t < 4
+        ak = (rng.uniform(0, 1e5, (8, a)) if fill
+              else np.full((8, a), np.inf)).astype(np.float32)
+        mask = np.full((8, a), fill)
+        av = np.tile(np.arange(a, dtype=np.int32), (8, 1)) + t * a
+        grant = np.full(8, 0 if fill else a, np.int32)
+        batch = [torch.from_numpy(x).to(dev) for x in (ak, av, mask, grant)]
+        state = _stack(states)
+        got = _launched(cfg, state, batch, rows_per_cta=1)
+        want = lane_tick.fused_tick_mid_plain(cfg, state, *batch)
+        torch.cuda.synchronize()
+        _assert_bit_equal(got, want, f"tick {t}")
+        moved += int((got.pending.need_move & ~got.pending.need_rebal).sum())
+        states = [pqueue.tick(cfg, s, *(b[i] for b in batch))[0]
+                  for i, s in enumerate(states)]
+    assert moved > 0
+
+
+@pytest.mark.gpu
+def test_one_launch_kernel_reuses_its_workspace():
+    """Two launches back to back on one counter workspace, then one whose
+    outputs and scratch hold garbage: each bit-equal to the plain version,
+    and every launch leaves the counters zero."""
+    dev = _card()
+    cfg, state, batch = _crafted(128, dev)
+    want = lane_tick.fused_tick_mid_plain(cfg, state, *batch)
+    ctr = _counters(dev, 3)
+    first = _launched(cfg, state, batch)
+    second = _launched(cfg, state, batch)
+    torch.cuda.synchronize()
+    assert not ctr.any(), ctr.tolist()
+    _assert_bit_equal(first, want, "first launch")
+    _assert_bit_equal(second, want, "second launch")
+    outs, ws = lane_tick.kernel_buffers(cfg, 3, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for x in outs + ws:
+        x.view(torch.int32).copy_(torch.randint(
+            -2 ** 31, 2 ** 31 - 1, x.shape, generator=gen, device=dev,
+            dtype=torch.int32))
+    garbage = _launched(cfg, state, batch, outs=outs, ws=ws)
+    torch.cuda.synchronize()
+    assert not ctr.any(), ctr.tolist()
+    _assert_bit_equal(garbage, want, "launch over garbage")
 
 
 def _mixed_keys(rng, shape):
