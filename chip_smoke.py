@@ -43,7 +43,12 @@ Phases, each fatal on failure:
    (1 to 100000 keys) and at phase 9's and phase 10's router shapes,
    each held bit for bit against the same op under the "torch" backend
    and timed on the device clock beside it and one PyTorch library call
-   (for K2, ``torch.sort``, listed beside it);
+   (for K2, ``torch.sort``, listed beside it).  K2 and K1 run at six key
+   mixes (K1's streams sorted again after the mix); K4 on the PRODUCTION
+   and w4096 stores flattened and two w4096 add batches (k from 0 past
+   the stream) and on the PRODUCTION bucket rows as 1024 streams, each also at the other digit
+   width (held and timed beside it).  Under the profiler one K1 call and
+   one K4 call must each be one kernel on the card, no memset;
 7. the sharded main path — ``make_engine(EngineSpec(engine="sharded",
    lanes=8, ...))`` beside a "torch" twin drawing the same routes on the
    card, at two cells: w4096 (2000 keys warm, 200 ticks at p_add 0.5
@@ -725,12 +730,14 @@ class OpCase:
     how its outputs compare (default: every output bit for bit)."""
 
     def __init__(self, kernel, label, cuda, plain, library, count,
-                 buffer_bytes, canon=None, also=None, timed=True):
+                 buffer_bytes, canon=None, also=None, timed=True,
+                 setting=None):
         self.kernel, self.label = kernel, label
         self.cuda, self.plain, self.library = cuda, plain, library
         self.count, self.buffer_bytes = count, buffer_bytes
         self.canon, self.also = canon, also
         self.timed = timed
+        self.setting = setting   # the kernel's shape, for the final line
 
 
 def nbytes(*tensors):
@@ -831,53 +838,82 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select, traffic):
                 lambda k=k, v=v, f=f: ops.sort_kvf(k, v, f, backend=plain),
                 lambda k=k: torch.sort(k, dim=-1, stable=True),
                 traffic.k2_sort(*k.shape), 2 * nbytes(k, v, f),
-                timed=mix == "uniform"))
+                timed=mix == "uniform", setting=str(list(k.shape))))
 
-    # K1: merge_sorted
+    # K1: merge_sorted, each stream sorted again after its key mix
     sk_p, sv_p = sorted_batch(prod, 0)
     sk_w, sv_w = sorted_batch(w4096, 0)
     sp, sw = prod["state"], w4096["state"]
     fk, fv = pq.flatten_parallel(prod["cfg"], pq._par_of(sp))
-    merges = {
-        "PRODUCTION combine 131072+1024": (sp.seq_keys[None],
-                                           sp.seq_vals[None], sk_p, sv_p),
-        "w4096 combine 16384+4096": (sw.seq_keys[None], sw.seq_vals[None],
-                                     sk_w, sv_w),
-        "PRODUCTION rebalance 1048576+1024": (fk[None], fv[None], sk_p, sv_p),
-        "sharded L=8 lanes [8, 1026]+[8, 512]": (
-            sw.seq_keys[:8 * 1026].reshape(8, 1026),
-            sw.seq_vals[:8 * 1026].reshape(8, 1026),
-            sk_w.reshape(8, 512), sv_w.reshape(8, 512)),
-    }
-    for shape, (ak, av, bk, bv) in merges.items():
-        ak, av, bk, bv = (x.contiguous() for x in (ak, av, bk, bv))
-        af, bf = torch.zeros_like(av), torch.ones_like(bv)
-        a, b = (ak, av, af), (bk, bv, bf)
-        cases.append(OpCase(
-            "K1", f"merge_sorted {shape}",
-            lambda a=a, b=b: ops.merge_sorted(*a, *b, backend=cuda),
-            lambda a=a, b=b: ops.merge_sorted(*a, *b, backend=plain),
-            lambda a=a, b=b: torch.sort(torch.cat([a[0], b[0]], -1), dim=-1,
-                                        stable=True),
-            traffic.k1_merge(ak.shape[0], ak.shape[1], bk.shape[1]),
-            2 * nbytes(*a, *b)))
 
-    # K4: select_threshold on the PRODUCTION store, flattened
-    flat_k, flat_v = pk.reshape(1, -1), pv.reshape(1, -1)
-    n_fin = int(torch.isfinite(flat_k).sum())
-    for k in (0, 1, 1024, 65536, n_fin, n_fin + 1):
-        kt = torch.full((1,), k, dtype=torch.int32, device="cuda")
+    def resorted(k, v):
+        k, order = torch.sort(k, dim=-1, stable=True)
+        return k.contiguous(), v.gather(-1, order).contiguous()
+
+    for shape, (ak0, av0, bk0, bv0) in merge_shapes(
+            sp, sw, fk, fv, sk_p, sv_p, sk_w, sv_w).items():
+        ak0, av0, bk0, bv0 = (x.contiguous() for x in (ak0, av0, bk0, bv0))
+        af, bf = flags_like(av0), flags_like(bv0)
+        a_mixes = key_mixes(ak0, gen)
+        for mix, bk_mix in key_mixes(bk0, gen).items():
+            a = (*resorted(a_mixes[mix], av0), af)
+            b = (*resorted(bk_mix, bv0), bf)
+            cases.append(OpCase(
+                "K1", f"merge_sorted {shape} {mix}",
+                lambda a=a, b=b: ops.merge_sorted(*a, *b, backend=cuda),
+                lambda a=a, b=b: ops.merge_sorted(*a, *b, backend=plain),
+                lambda a=a, b=b: torch.sort(torch.cat([a[0], b[0]], -1),
+                                            dim=-1, stable=True),
+                traffic.k1_merge(ak0.shape[0], ak0.shape[1], bk0.shape[1]),
+                2 * nbytes(*a, *b), timed=mix == "uniform", setting=shape))
+
+    # K4: select_threshold on the PRODUCTION store and the w4096 store,
+    # flattened (one stream each; the w4096 store is all INF after the
+    # mix, so two of its add batches, [1, 8192] of DES keys and INF, carry
+    # its k sweep), and on the PRODUCTION bucket rows as 1024 streams
+    wk, wv, wc, wsp = store(w4096)
+    w_adds = torch.where(w4096["rows"][2][:2], w4096["rows"][0][:2], inf)
+    n_rows = pk.shape[0]
+    row_k = torch.randint(0, pk.shape[1] + 2, (n_rows,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    row_k[:3] = torch.tensor([0, 1, pk.shape[1] + 1], device="cuda")
+    selects = []
+    for name, keys, mid in (("PRODUCTION store", pk.reshape(1, -1), 65536),
+                            ("w4096 store", wk.reshape(1, -1), 4096),
+                            ("w4096 add batches", w_adds.reshape(1, -1),
+                             2048)):
+        n_fin = int(torch.isfinite(keys).sum())
+        selects += [(name, keys, k) for k in dict.fromkeys(
+            (0, 1, 1024, mid, n_fin, n_fin + 1, keys.shape[1] + 1))]
+    selects.append(("PRODUCTION bucket rows", pk, row_k))
+    for name, keys, k in selects:
+        rows, length = keys.shape
+        kt = (k if isinstance(k, torch.Tensor) else
+              torch.full((1,), k, dtype=torch.int32, device="cuda"))
+        past = int(kt.max()) > length             # the oracle clamps k
+        plain_fn = (
+            (lambda keys=keys, kt=kt:
+             radix_select.radix_select_threshold_plain(keys, kt)) if past
+            else (lambda keys=keys, kt=kt:
+                  ops.select_threshold(keys, kt, backend=plain)))
+        library = (None if isinstance(k, torch.Tensor) or not k
+                   or k > length else
+                   (lambda keys=keys, k=k: torch.kthvalue(keys, k, dim=-1)))
+        k_label = "per row" if isinstance(k, torch.Tensor) else k
         cases.append(OpCase(
-            "K4", f"select_threshold PRODUCTION store 1048576 keys k={k}",
-            lambda kt=kt: ops.select_threshold(flat_k, kt, backend=cuda),
-            lambda kt=kt: ops.select_threshold(flat_k, kt, backend=plain),
-            (lambda k=k: torch.kthvalue(flat_k, k, dim=-1)) if k else None,
-            traffic.k4_select(*flat_k.shape), nbytes(flat_k, kt) + 8,
-            also=lambda kt=kt: radix_select.radix_select_threshold_plain(
-                flat_k, kt)))
+            "K4", f"select_threshold {name} [{rows}, {length}] k={k_label}",
+            lambda keys=keys, kt=kt: ops.select_threshold(keys, kt,
+                                                          backend=cuda),
+            plain_fn, library, traffic.k4_select(rows, length),
+            nbytes(keys, kt) + 8 * rows,
+            also=None if past else (
+                lambda keys=keys, kt=kt:
+                radix_select.radix_select_threshold_plain(keys, kt)),
+            setting=f"[{rows}, {length}]"))
 
     # K4 then K2: the compositions
     k_max = prod["cfg"].move_k_max
+    flat_k, flat_v = pk.reshape(1, -1), pv.reshape(1, -1)
     cases.append(OpCase(
         "K4+K2", f"select_k_smallest PRODUCTION store k={k_max} "
         f"k_max={k_max}",
@@ -888,8 +924,8 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select, traffic):
         lambda: torch.topk(flat_k, k_max, dim=-1, largest=False,
                            sorted=True),
         traffic.select_k_smallest(*flat_k.shape, k_max),
-        nbytes(flat_k, flat_v) + 8 * k_max))
-    wk, wv, wc, wsp = store(w4096)
+        nbytes(flat_k, flat_v) + 8 * k_max,
+        setting=f"[1, {flat_k.shape[1]}]"))
     for cell, (sk, sv, sc, spl), km, ks in (
             ("PRODUCTION", (pk, pv, pc, psp), k_max, (1024, 65536)),
             ("w4096", (wk, wv, wc, wsp), w4096["cfg"].move_k_max,
@@ -904,8 +940,24 @@ def kernel_ops_cases(args, w4096, prod, ops, pq, radix_select, traffic):
                     *a[:5], splitters=a[5], backend=plain),
                 None, traffic.extract_k_bucketed(*sk.shape, km),
                 2 * nbytes(sk, sv, sc) + nbytes(spl) + 8 * km,
-                canon=canon_extract))
+                canon=canon_extract, setting=f"[1, {sk.numel()}]"))
     return cases
+
+
+def merge_shapes(sp, sw, fk, fv, sk_p, sv_p, sk_w, sv_w):
+    """K1's four merges: the PRODUCTION and w4096 combines, the
+    PRODUCTION rebalance and the sharded L=8 lanes' combine."""
+    return {
+        "PRODUCTION combine 131072+1024": (sp.seq_keys[None],
+                                           sp.seq_vals[None], sk_p, sv_p),
+        "w4096 combine 16384+4096": (sw.seq_keys[None], sw.seq_vals[None],
+                                     sk_w, sv_w),
+        "PRODUCTION rebalance 1048576+1024": (fk[None], fv[None], sk_p, sv_p),
+        "sharded L=8 lanes [8, 1026]+[8, 512]": (
+            sw.seq_keys[:8 * 1026].reshape(8, 1026),
+            sw.seq_vals[:8 * 1026].reshape(8, 1026),
+            sk_w.reshape(8, 512), sv_w.reshape(8, 512)),
+    }
 
 
 def canon_extract(out, bitonic):
@@ -916,6 +968,53 @@ def canon_extract(out, bitonic):
     rk, rv, _ = bitonic.bitonic_sort_kvf_plain(new_k, new_v,
                                                torch.zeros_like(new_v))
     return out_k, out_v, rk, rv, new_counts
+
+
+#: the final line's phase-6 rows: (kernel, wrapper, source, the TPU
+#: kernel it replaces, (the row's name, the timed op it reads) a setting)
+KERNEL_OPS_ROWS = (
+    ("K1", "merge_sorted_kvf", "merge_consume.cu",
+     "src/repro/kernels/merge_consume.py:119",
+     [(shape, f"merge_sorted {shape} uniform") for shape in (
+         "PRODUCTION combine 131072+1024", "w4096 combine 16384+4096",
+         "PRODUCTION rebalance 1048576+1024",
+         "sharded L=8 lanes [8, 1026]+[8, 512]")]),
+    ("K2", "bitonic_sort_kvf", "bitonic.cu",
+     "src/repro/kernels/bitonic.py:89",
+     [("PRODUCTION bucket rows [1024, 1024] uniform",
+       "sort_kvf PRODUCTION bucket rows [1024, 1024] uniform")]),
+    ("K4", "radix_select_threshold", "radix_select.cu",
+     "src/repro/kernels/radix_select.py:93",
+     [("PRODUCTION store 1048576 keys k=65536",
+       "select_threshold PRODUCTION store [1, 1048576] k=65536"),
+      ("w4096 add batches [1, 8192] k=2048",
+       "select_threshold w4096 add batches [1, 8192] k=2048"),
+      ("PRODUCTION bucket rows [1024, 1024] k=per row",
+       "select_threshold PRODUCTION bucket rows [1024, 1024] k=per row")]))
+
+
+def kernel_ops_rows(records, totals):
+    """The final line's rows of phase 6: a row per K1 merge and K4 shape
+    (K2: its [1024, 1024] row).  ``launches`` is the wrapper's launches in
+    phase 6's path run, ``setting_launches`` those at the row's setting
+    (K4 also inside the compositions), ``max_abs_err`` the kernel's worst
+    in the phase."""
+    rows = []
+    for kname, wrapper, src, replaces, settings in KERNEL_OPS_ROWS:
+        of = [r for r in records.values() if kname in r["kernel"]]
+        for name, label in settings:
+            rec = records[label]
+            rows.append(dict(
+                name=f"{wrapper}[{name}]", route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{src}",
+                replaces=replaces, launches=totals[wrapper],
+                setting_launches=sum(r["launches"].get(wrapper, 0)
+                                     for r in of
+                                     if r["shape"] == rec["shape"]),
+                max_abs_err=max(r["max_abs_err"] for r in of),
+                **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}))
+    return rows
 
 
 def kernel_ops_path(args, w4096, prod, ops, pq, wrappers, bitonic,
@@ -957,6 +1056,7 @@ def kernel_ops_path(args, w4096, prod, ops, pq, wrappers, bitonic,
                          f"max |diff| {max_abs_err(g, w)}")
                 err = max(err, max_abs_err(g, w))
         rec = dict(kernel=case.kernel, op=case.label, launches=launches,
+                   shape=case.setting,
                    max_abs_err=err, bytes=case.count.hbm_bytes,
                    bound_ms=case.count.bound_s() * 1e3, bound_by="bytes",
                    buffer_bytes=case.buffer_bytes)
@@ -974,7 +1074,70 @@ def kernel_ops_path(args, w4096, prod, ops, pq, wrappers, bitonic,
     for name, w in wrappers.items():
         if totals[name] == 0:
             fail(f"the kernel-ops path never launched {name}")
+    one_kernel_per_call(cases, wrappers)
     return records, totals
+
+
+#: phase-6 ops whose wrapper call must be one kernel on the card: (label,
+#: wrapper, the kernel's name)
+ONE_KERNEL_OPS = (
+    ("merge_sorted PRODUCTION combine 131072+1024 uniform",
+     "merge_sorted_kvf", "merge_kernel"),
+    ("merge_sorted PRODUCTION rebalance 1048576+1024 uniform",
+     "merge_sorted_kvf", "merge_kernel"),
+    ("select_threshold PRODUCTION store [1, 1048576] k=65536",
+     "radix_select_threshold", "grid_kernel"),
+    ("select_threshold w4096 add batches [1, 8192] k=2048",
+     "radix_select_threshold", "row_kernel"),
+    ("select_threshold PRODUCTION bucket rows [1024, 1024] k=per row",
+     "radix_select_threshold", "row_kernel"))
+
+
+def one_kernel_per_call(cases, wrappers, calls=10, markers=4):
+    """K1's and K4's wrapper calls of :data:`ONE_KERNEL_OPS` under the
+    profiler: besides ``markers`` device sleeps queued first (the
+    profiler has lost the first records of a window), the device must
+    show exactly one event a call, each the op's kernel (no memset, no
+    copy).  A window short of that (the profiler can lose a record) is
+    profiled again, up to :data:`PROFILE_WINDOWS`; a surplus fails at
+    once.  Prints each op's windows: (events, the op's kernels, launches,
+    marker events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    by_label = {c.label: c for c in cases}
+    for label, wrapper, kernel in ONE_KERNEL_OPS:
+        case = by_label[label]
+        fn = case.cuda
+        fn()
+        torch.cuda.synchronize()
+        windows = []
+        for _ in range(PROFILE_WINDOWS):
+            before = wrappers[wrapper].launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(markers):
+                    torch.cuda._sleep(1000)
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_EDGE_S)
+            launched = wrappers[wrapper].launches - before
+            names = [ev.name for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA]
+            marks = sum("spin" in x or "sleep" in x for x in names)
+            names = [x for x in names if not ("spin" in x or "sleep" in x)]
+            ours = sum(kernel in x for x in names)
+            windows.append([len(names), ours, launched, marks])
+            if launched != calls or len(names) > calls:
+                fail(f"{label}: {len(names)} device events ({ours} "
+                     f"{kernel}) and {launched} launches for {calls} "
+                     f"calls: {sorted(set(names))[:6]}")
+            if ours == len(names) == calls:
+                break
+        else:
+            fail(f"{label}: device events, {kernel}s and launches, window "
+                 f"by window: {windows}")
+        print(f"one kernel a call: {label}: {windows}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2669,24 +2832,7 @@ def main() -> None:
     kernels += rows
     for name, run in ran.items():
         kernels += setting_kernels(name, run["k3"], run["k2"], held)
-    for kname, wrapper, src, replaces, label in (
-            ("K1", "merge_sorted_kvf", "merge_consume.cu",
-             "src/repro/kernels/merge_consume.py:119",
-             "merge_sorted PRODUCTION combine 131072+1024"),
-            ("K2", "bitonic_sort_kvf", "bitonic.cu",
-             "src/repro/kernels/bitonic.py:89",
-             "sort_kvf PRODUCTION bucket rows [1024, 1024] uniform"),
-            ("K4", "radix_select_threshold", "radix_select.cu",
-             "src/repro/kernels/radix_select.py:93",
-             "select_threshold PRODUCTION store 1048576 keys k=65536")):
-        err = max(r["max_abs_err"] for r in records.values()
-                  if kname in r["kernel"])
-        kernels.append(dict(
-            name=f"{wrapper}[{label.split(' ', 1)[1]}]", route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
-            launches=ops_launches[wrapper], max_abs_err=err,
-            **{k: records[label][k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}))
+    kernels += kernel_ops_rows(records, ops_launches)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -93,13 +93,16 @@ SIGNATURES = {
         "bitonic_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "merge_consume": {
-        "merge_consume_launch": ([_VP] * 9 + [_LL, _LL, _LL, _VP],
+        "merge_consume_launch": ([_VP] * 9 + [_LL] * 5 + [_VP],
                                  ctypes.c_int),
         "merge_consume_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "radix_select": {
-        "radix_select_launch": ([_VP] * 5 + [_LL, _LL, _VP], ctypes.c_int),
+        "radix_select_launch": ([_VP] * 5 + [ctypes.POINTER(_LL), _VP],
+                                ctypes.c_int),
         "radix_select_ws_ints": ([], _LL),
+        "radix_select_device_limits": ([_LL, ctypes.POINTER(_LL)],
+                                       ctypes.c_int),
         "radix_select_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }

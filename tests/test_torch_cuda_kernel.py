@@ -11,8 +11,13 @@ at the wrapper's head tile width and at a width of 64 slots, so that the
 head's merge windows cross tile edges; K2 at row lengths around its
 one-CTA limit and past it, on all-equal keys (stability), both zeros, INF
 padding, negatives and duplicates; K1 and K4 on ties, INF padding, -0.0
-and rows past one CTA's shared memory; and the kernel ops' "cuda"
-compositions on the card against the same compositions on the CPU.
+and rows past one CTA's shared memory; K1 also at K2's key mixes (-0.0 in
+a against 0.0 in b), at the phase-6 merges, empty streams, tiles that end
+inside a row, rows x tiles past 65535 and inputs off a 16-byte boundary;
+K4 in both of its kernels (one CTA a row; the cooperative grid, staged
+and not) at both digit widths; one call of each a single kernel on the
+card under the profiler; and the kernel ops' "cuda" compositions on the
+card against the same compositions on the CPU.
 Every output must equal its plain version's bit for bit, and each wrapper
 call counts one launch.  K3 also at the lane geometry of the adaptive
 engine's fold headroom (``width=4096, lanes=8, min_lanes=1``: a_max 4096,
@@ -41,7 +46,7 @@ import torch
 
 from repro_torch.core import PRODUCTION, PQConfig, pqueue, sharded
 from repro_torch.core.factory import EngineSpec, make_engine
-from repro_torch.kernels import bitonic, lane_tick, merge_consume
+from repro_torch.kernels import bitonic, build, lane_tick, merge_consume
 from repro_torch.kernels import ops, radix_select
 from repro_torch.data import PrioritySampler
 from repro_torch.data.priority_sampler import DEFAULT_CFG
@@ -462,6 +467,205 @@ def test_radix_select_kernel_matches_plain_version(length):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert _same_bits(g, w), length
+
+
+def _device_kernels(fn, calls, markers=4):
+    """The names of the device events (kernels, copies, fills) that
+    ``calls`` calls of ``fn`` put on the card, under the profiler.  The
+    profiler can lose a window's first records, so ``markers`` device
+    sleeps go first and are left out; a window still short is profiled
+    again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(markers):
+                torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA
+                 and not ("spin" in ev.name or "sleep" in ev.name)]
+        if len(names) >= calls:
+            return names
+    return names
+
+
+def _merge_keys(rng, rows, n, m, mix):
+    """Both streams' keys under a K2 key mix, each sorted again after it;
+    "zeros": -0.0 in a against 0.0 in b."""
+    if mix == "zeros":
+        ak = rng.choice(np.array([-0.0, 1.0, -1.0], np.float32), (rows, n))
+        bk = rng.choice(np.array([0.0, 1.0, -1.0], np.float32), (rows, m))
+    else:
+        ak = _sort_keys(rng, (rows, n), mix)
+        bk = _sort_keys(rng, (rows, m), mix)
+    return np.sort(ak, -1), np.sort(bk, -1)
+
+
+def _merge_args(rng, ak, bk, offset=0):
+    """(ak, av, af, bk, bv, bf) on the card; with ``offset`` each input
+    starts ``offset`` words into its buffer (not 16-byte aligned)."""
+    rows, n = ak.shape
+    m = bk.shape[1]
+    av = rng.integers(-(1 << 30), 1 << 30, (rows, n)).astype(np.int32)
+    bv = rng.integers(-(1 << 30), 1 << 30, (rows, m)).astype(np.int32)
+    af = rng.integers(0, 2, (rows, n)).astype(np.int32)
+    bf = rng.integers(0, 2, (rows, m)).astype(np.int32)
+
+    def card(x):
+        buf = torch.zeros(x.size + offset, dtype=torch.from_numpy(x).dtype,
+                          device="cuda")
+        buf[offset:] = torch.from_numpy(x.reshape(-1)).cuda()
+        return buf[offset:].view(x.shape)
+    return [card(x) for x in (ak, av, af, bk, bv, bf)]
+
+
+#: K1 shapes: the phase-6 merges, empty streams, one tile and tiles that
+#: end inside a row, and rows x tiles past 65535
+_MERGE_SHAPES = [(1, 131072, 1024), (1, 16384, 4096), (8, 1026, 512),
+                 (1, 1048576, 1024), (1, 0, 700), (3, 900, 0),
+                 (5, 700, 333), (70000, 3, 2), (1, 1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix", ["mixed", "all_equal", "zeros", "inf_heavy",
+                                 "negative_duplicates"])
+@pytest.mark.parametrize("rows,n,m", _MERGE_SHAPES)
+def test_merge_kernel_at_key_mixes(rows, n, m, mix):
+    """K1 bit-equal to its plain version at every key mix of the K2
+    checks, one wrapper launch a call."""
+    _need_gpu()
+    rng = np.random.default_rng(rows + n + 7 * m)
+    args = _merge_args(rng, *_merge_keys(rng, rows, n, m, mix))
+    got = _launched_once(merge_consume.merge_sorted_kvf, *args)
+    if n and m:
+        want = merge_consume.merge_sorted_kvf_plain(*args)
+    else:      # the plain version gathers from both: an empty one is a copy
+        want = [torch.cat([a, b], -1) for a, b in zip(args[:3], args[3:])]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same_bits(g, w), (rows, n, m, mix)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n,m", [(1, 5001, 3003), (3, 1026, 511)])
+def test_merge_kernel_on_unaligned_inputs(rows, n, m):
+    """Inputs that start off a 16-byte boundary take the kernel's 4-byte
+    copies; still bit-equal."""
+    _need_gpu()
+    rng = np.random.default_rng(n)
+    args = _merge_args(rng, *_merge_keys(rng, rows, n, m, "mixed"),
+                       offset=1)
+    got = _launched_once(merge_consume.merge_sorted_kvf, *args)
+    want = merge_consume.merge_sorted_kvf_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same_bits(g, w), (rows, n, m)
+
+
+@pytest.mark.gpu
+def test_merge_kernel_is_one_device_kernel():
+    _need_gpu()
+    rng = np.random.default_rng(3)
+    args = _merge_args(rng, *_merge_keys(rng, 1, 131072, 1024, "mixed"))
+    names = _device_kernels(lambda: merge_consume.merge_sorted_kvf(*args), 5)
+    assert len(names) == 5 and all("merge_kernel" in x for x in names), \
+        names
+
+
+def _select_keys(rng, rows, length):
+    """Mixed keys, with an all-INF row, a negative row, a row of both
+    zeros and a row of few finite keys among the first five."""
+    keys = _mixed_keys(rng, (rows, length))
+    if rows > 1:
+        keys[1] = np.inf
+    if rows > 2:
+        keys[2] = -np.abs(keys[2])
+    if rows > 3:
+        keys[3] = rng.choice(np.array([0.0, -0.0], np.float32), length)
+    if rows > 4:
+        keys[4, length // 10:] = np.inf
+    return keys
+
+
+def _select_ks(rng, keys):
+    """One k a row: 0, 1, the middle, the finite count, one past it, the
+    length and past it, then random."""
+    rows, length = keys.shape
+    n_fin = np.isfinite(keys).sum(-1)
+    k = rng.integers(0, length + 2, rows).astype(np.int32)
+    edges = [0, 1, length // 2, None, None, length, length + 5]
+    for r, e in enumerate(edges[:rows]):
+        k[r] = (n_fin[r] if r == 3 else n_fin[r] + 1 if r == 4 else e)
+    return k
+
+
+#: K4 shapes: the row kernel ([1024, 1024] bucket rows, [8, 1024], the
+#: w4096 store [1, 8192], the longest rows it takes alone and beside as
+#: many rows as SMs) and the grid kernel (a row just past those, the
+#: PRODUCTION store, six such rows, and a row past the card's shared
+#: memory in total)
+_SELECT_SHAPES = [(1024, 1024), (8, 1024), (1, 8192), (1, 16384),
+                  (140, 40000), (1, 16385), (1, 1 << 20), (6, 1 << 20),
+                  (1, 9 << 20)]
+
+
+def _select_plan(rows, length):
+    lim = radix_select.device_limits("cuda")
+    return radix_select.launch_plan(rows, length, lim.sms, lim.smem_bytes,
+                                    lim.blocks_per_sm)
+
+
+_ROW_SHAPES = _SELECT_SHAPES[:5]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,length", _SELECT_SHAPES)
+def test_radix_select_kernel_in_both_regimes(rows, length):
+    """K4 bit-equal to its plain version at every shape and edge k, one
+    launch a call."""
+    _need_gpu()
+    rng = np.random.default_rng(rows + length)
+    keys = _select_keys(rng, rows, length)
+    k = _select_ks(rng, keys)
+    args = [torch.from_numpy(x).cuda() for x in (keys, k)]
+    got = _launched_once(radix_select.radix_select_threshold, *args)
+    want = radix_select.radix_select_threshold_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same_bits(g, w), (rows, length)
+    plan = _select_plan(rows, length)
+    assert plan.kernel == ("row" if (rows, length) in _ROW_SHAPES else "grid")
+    assert plan.staged == (length < 9 << 20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,length", [(1024, 1024), (1, 1 << 20)])
+def test_radix_select_is_one_device_kernel(rows, length):
+    """One K4 call is one kernel on the card: no memset, the grid
+    kernel's workspace left zero for the next call."""
+    _need_gpu()
+    rng = np.random.default_rng(length)
+    keys = torch.from_numpy(_mixed_keys(rng, (rows, length))).cuda()
+    k = torch.full((rows,), length // 3, dtype=torch.int32, device="cuda")
+    names = _device_kernels(
+        lambda: radix_select.radix_select_threshold(keys, k), 5)
+    kernel = f"{_select_plan(rows, length).kernel}_kernel"
+    assert len(names) == 5 and all(kernel in x for x in names), names
+    got = radix_select.radix_select_threshold(keys, k)
+    want = radix_select.radix_select_threshold_plain(keys, k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+    for ws in radix_select._WORKSPACE.values():
+        assert not ws.any()
+    lib = build.load("radix_select")   # the plan's count of the workspace
+    assert lib.radix_select_ws_ints() == radix_select.WS_INTS
 
 
 @pytest.mark.gpu
