@@ -118,7 +118,32 @@ Phases, each fatal on failure:
    c. a ``repro_torch.roofline`` record per engine cell of phases 4, 5
       and 7 and for the sampler (``record_from_traffic``), and each
       phase-3 and phase-6 setting's traffic bound beside its buffers'
-      count; no measured time may fall under its bound.
+      count; no measured time may fall under its bound;
+11. the model stack's serving path (``repro_torch.models``,
+    ``repro_torch.launch.serve``; plain PyTorch, no TPU kernel behind it),
+    TF32 off —
+   a. gemma-2b at its published configuration (2.51 B parameters, bf16)
+      from a seeded generator on the card: four prompts of 512 tokens,
+      ``make_prefill_step``, 32 greedy ``make_decode_step``s; every
+      generated position's logits against ``forward`` over prompt and
+      fed tokens (teacher forcing) within 5e-2 of the logits' scale, the
+      greedy tokens equal where the margin allows; the same tokens
+      through a float32 copy of the weights within 1e-3; the prefill's
+      and a decode step's device time under the profiler beside their
+      bounds (``traffic.model_prefill`` / ``model_decode`` bytes against
+      ``model_step_flops``; none may fall under its bound), the prefill's
+      2·N·D (``model_flops``) as a share of the bf16 peak, the decode
+      loop's host-clocked tokens/s, the peak device memory;
+   b. every other arch at full width, one pattern group deep
+      (xlstm-350m and whisper-tiny whole; MoE at a capacity factor that
+      drops nothing): two prompts of 512 tokens, 8 greedy steps, the same
+      teacher forcing (xlstm-350m: its float32 copy, its bf16 drift
+      recorded), chunked prefill at chunk_len=256 against one shot where
+      the reference runs it; every cut printed;
+   c. the ten archs at ``reduced_config`` in float32, the same weights on
+      the CPU and the card: forward, prefill caches and two decode steps
+      (rows at different positions) within 1e-4;
+   K1-K4 never launch in the phase.
 
 The last lines are a JSON record of the kernels and the run's status
 line.  Phase 9's and phase 10's rows in it are one per kernel setting
@@ -2645,6 +2670,380 @@ def kernel_settings_path(args, config, factory, serving, examples,
     return records_k3
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the model stack's serving path
+# ---------------------------------------------------------------------------
+
+#: 11a: gemma-2b whole, four prompts of 512 tokens, 32 greedy steps
+FULL_ARCH, FULL_BATCH, FULL_PROMPT, FULL_STEPS = "gemma-2b", 4, 512, 32
+#: 11b: every other arch, two prompts of 512 tokens, 8 steps, chunks of 256
+GROUP_BATCH, GROUP_PROMPT, GROUP_STEPS, GROUP_CHUNK = 2, 512, 8, 256
+#: archs that 11b runs whole (every other is cut to one pattern group)
+GROUP_WHOLE = ("xlstm-350m", "whisper-tiny")
+#: max |a - b| over max(1, max |b|): bf16 (the port against itself at
+#: other shapes and sum orders: one-token steps against the whole
+#: sequence, chunks of 256 against one shot) and float32 (TF32 off)
+TF_TOL_BF16, TF_TOL_F32 = 5e-2, 1e-3
+#: archs whose bf16 decode departs from their own bf16 forward by more
+#: than TF_TOL_BF16 in the reference too (24 recurrent layers amplify
+#: rounding ~1e4 times: tests/torch_model_drift_check.py); 11b records
+#: their bf16 drift and holds their float32 copy to the tolerance given
+DRIFTS = {"xlstm-350m": 1e-2}
+#: 11c: the card against the port on the CPU, reduced configs, float32
+CPU_TOL = 1e-4
+
+
+def rel(a, b) -> float:
+    """max |a - b| over max(1, max |b|), both moved to the CPU."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    if a.shape != b.shape:
+        fail(f"shapes differ: {tuple(a.shape)} against {tuple(b.shape)}")
+    if not torch.isfinite(a).all():
+        fail("a non-finite value")
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def model_inputs(cfg, batch, prompt, seed, device):
+    """Prompt tokens and the frontend stub inputs, from the seed."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt),
+                                         dtype=np.int32)).to(device)
+    extras = {}
+    if cfg.frontend == "vit":
+        extras["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.frontend_tokens, cfg.d_model),
+            dtype=np.float32)).to(device)
+    if cfg.frontend == "audio":
+        extras["enc_frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model), dtype=np.float32)).to(device)
+    return toks, extras
+
+
+def serve_run(tf, serve, cfg, params, toks, extras, steps, feed=None):
+    """``make_prefill_step``, then ``steps`` ``make_decode_step``s, each
+    fed the greedy token of the step before (or ``feed``'s).  Returns
+    the logits at every generated position [B, steps + 1, V], the tokens
+    fed [B, steps], the caches, the prefill's host and event ms (the first
+    call of a process also pays its library set-up), the decode steps'
+    event ms each (host included: the host issues every launch) and the
+    host-clocked tokens/s."""
+    b, s = toks.shape
+    pre = cfg.frontend_tokens if cfg.frontend == "vit" else 0
+    dev = toks.device
+    caches = tf.init_decode_caches(cfg, b, pre + s + steps, dev)
+    prefill, decode = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    last, caches = prefill(params, caches, toks, **extras)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_event_ms = start.elapsed_time(end)
+    logits, fed = [last[:, 0]], []
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(steps):
+        tok = (feed[:, i:i + 1] if feed is not None else
+               logits[-1][:, :cfg.vocab].argmax(-1, keepdim=True).int())
+        fed.append(tok)
+        out, caches = decode(params, caches, tok, torch.full(
+            (b,), pre + s + i, dtype=torch.int32, device=dev))
+        logits.append(out[:, 0])
+    end.record()
+    torch.cuda.synchronize()
+    return dict(logits=torch.stack(logits, 1), fed=torch.cat(fed, 1),
+                caches=caches, prefill_host_ms=1e3 * prefill_s,
+                prefill_event_ms=prefill_event_ms,
+                decode_event_ms=start.elapsed_time(end) / steps,
+                tokens_per_s=b * steps / (time.perf_counter() - t0))
+
+
+def teacher_forcing(tf, cfg, params, toks, extras, run, tol, label):
+    """``forward`` over prompt + fed tokens against every generated
+    position's logits (``tol``), and the greedy tokens equal where the
+    forward's top-2 margin exceeds twice the tolerance.  An arch whose
+    prefill needs chunk multiples (Mamba2, mLSTM) reads a forward padded
+    with token 0 to a multiple of 256: the model is causal, so the
+    positions compared see no padding."""
+    seq = torch.cat([toks, run["fed"]], 1)
+    if any(k in cfg.layer_pattern for k in "MX"):
+        seq = torch.nn.functional.pad(seq, (0, (-seq.shape[1]) % 256))
+    pre = cfg.frontend_tokens if cfg.frontend == "vit" else 0
+    s, n = toks.shape[1], run["logits"].shape[1]
+    full, _ = tf.forward(cfg, params, seq, **extras)
+    want = full[:, pre + s - 1:pre + s - 1 + n].float()
+    del full
+    got = run["logits"].float()
+    err = rel(got, want)
+    if err > tol:
+        fail(f"{label}: decode logits differ from forward's by {err:.3e} "
+             f"(> {tol})")
+    top2 = want[..., :cfg.vocab].topk(2, dim=-1).values
+    scale = max(1.0, float(want.abs().max()))
+    wide = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
+    same = got[..., :cfg.vocab].argmax(-1) == want[..., :cfg.vocab].argmax(-1)
+    if not bool(same[wide].all()):
+        fail(f"{label}: a greedy token differs where the margin allows")
+    return dict(err=err, greedy_checked=int(wide.sum()),
+                greedy_equal=float(same.float().mean()))
+
+
+def step_profiles(serve, cfg, params, toks, run, last, reps, extras={}):
+    """The device time of a prefill and of the last decode step, each
+    called again ``reps[name]`` times under the profiler (both are
+    idempotent: they write the same values to the same cache slots):
+    every device event summed per call, the share of the window's wall it
+    fills, the top kernels."""
+    prefill, decode = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    caches, b = run["caches"], toks.shape[0]
+    pos = torch.full((b,), last, dtype=torch.int32, device=toks.device)
+    steps = {"prefill": lambda: prefill(params, caches, toks, **extras),
+             "decode": lambda: decode(params, caches, run["fed"][:, -1:],
+                                      pos)}
+    out = {}
+    for name, n in reps.items():
+        rec = _profile_window(steps[name], n)
+        if rec is None:
+            fail(f"{cfg.name}: the profiler recorded no device time")
+        out[name] = {k: rec[k] for k in (
+            "wall_us_per_tick", "device_us_per_tick",
+            "device_events_per_tick", "device_busy_share",
+            "top_other_device_us_per_tick")}
+    return out
+
+
+def serve_bounds(traffic, cfg, batch, seq, last):
+    """The least ms a prefill of ``batch`` x ``seq`` positions and a
+    decode step at position ``last`` could take on the card
+    (``traffic.model_prefill`` / ``model_decode`` bytes against
+    ``model_step_flops``), with their bytes and FLOPs."""
+    pre = traffic.model_prefill(cfg, batch, seq)
+    dec = traffic.model_decode(cfg, batch, batch * (last + 1))
+    pre_flops = traffic.model_step_flops(cfg, batch * seq, batch)
+    dec_flops = traffic.model_step_flops(cfg, batch, batch)
+    return dict(
+        prefill_bound_ms=1e3 * traffic.model_bound_s(pre, pre_flops),
+        prefill_bytes=pre.hbm_bytes, prefill_flops=pre_flops,
+        decode_bound_ms=1e3 * traffic.model_bound_s(dec, dec_flops),
+        decode_bytes=dec.hbm_bytes, decode_flops=dec_flops)
+
+
+def check_bounds(rec, keys):
+    """No measured time under its step's bound (a wrong count)."""
+    for key in keys:
+        bound = rec[key.split("_")[0] + "_bound_ms"]
+        if rec[key] < bound:
+            fail(f"{rec['arch']}: {key} {rec[key]:.4f} under its bound "
+                 f"{bound:.4f}")
+
+
+def full_size_path(args, tf, serve, traffic, smi):
+    """11a.  gemma-2b at its published configuration from a seeded
+    generator on the card: four prompts of 512 tokens, one prefill step
+    and 32 greedy decode steps; decode against ``forward`` (teacher
+    forcing) in bf16, then the same tokens through a float32 copy of the
+    weights at a tight tolerance; times on the device clock beside their
+    bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import hw, model_flops
+    cfg = get_config(FULL_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = tf.init_params(cfg, gen, "cuda")
+    n_params = tf.param_count(params)
+    toks, _ = model_inputs(cfg, FULL_BATCH, FULL_PROMPT, args.seed, "cuda")
+    run = serve_run(tf, serve, cfg, params, toks, {}, FULL_STEPS)
+    tforce = teacher_forcing(tf, cfg, params, toks, {}, run, TF_TOL_BF16,
+                             f"{FULL_ARCH} bf16")
+    last = FULL_PROMPT + FULL_STEPS - 1
+    prof = step_profiles(serve, cfg, params, toks, run, last,
+                         dict(prefill=2, decode=5))
+    peak = torch.cuda.max_memory_allocated()
+    tokens = FULL_BATCH * FULL_PROMPT
+    rec = dict(
+        arch=FULL_ARCH, params=n_params, batch=FULL_BATCH,
+        prompt=FULL_PROMPT, steps=FULL_STEPS, card=smi,
+        prefill_ms=prof["prefill"]["device_us_per_tick"] / 1e3,
+        prefill_host_ms=run["prefill_host_ms"],
+        decode_ms=prof["decode"]["device_us_per_tick"] / 1e3,
+        decode_event_ms=run["decode_event_ms"],
+        **serve_bounds(traffic, cfg, FULL_BATCH, FULL_PROMPT, last),
+        tokens_per_s=run["tokens_per_s"], max_memory_allocated=peak,
+        teacher_forcing_bf16=tforce, profiles=prof)
+    # the reference's MFU convention: 2·N·D (analysis.model_flops)
+    rec["prefill_model_flops"] = model_flops(cfg, "prefill", tokens)
+    rec["prefill_peak_share"] = rec["prefill_model_flops"] / (
+        1e-3 * rec["prefill_ms"] * hw.PEAK_FLOPS)
+    check_bounds(rec, ("prefill_ms", "decode_ms"))
+    fed = run["fed"]
+    del run
+    # the float32 copy (about 10 GB), fed the bf16 run's tokens, no TF32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tf.tree_map(lambda t: t.float(), params)
+    run32 = serve_run(tf, serve, cfg32, params, toks, {}, FULL_STEPS,
+                      feed=fed)
+    rec["teacher_forcing_f32"] = teacher_forcing(
+        tf, cfg32, params, toks, {}, run32, TF_TOL_F32, f"{FULL_ARCH} f32")
+    rec["max_memory_allocated_f32"] = torch.cuda.max_memory_allocated()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def group_cfg(cfg):
+    """11b's config: full width, cut in depth to one pattern group (but
+    GROUP_WHOLE); MoE at capacity factor n_experts / top_k, where no
+    assignment is dropped, so that forward, one-shot and chunked prefill
+    route every token as the one-token steps do."""
+    cuts = []
+    if cfg.name not in GROUP_WHOLE and cfg.n_layers > len(cfg.layer_pattern):
+        cuts.append(f"n_layers {cfg.n_layers} -> {len(cfg.layer_pattern)}")
+        cfg = dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern))
+    if cfg.family == "moe":
+        cap = cfg.n_experts / cfg.top_k
+        cuts.append(f"capacity_factor {cfg.capacity_factor} -> {cap}")
+        cfg = dataclasses.replace(cfg, capacity_factor=cap)
+    return cfg, cuts
+
+
+def group_path(args, tf, serve, traffic, arch, smi):
+    """11b.  One arch at full width (``group_cfg``): two prompts of 512
+    tokens, prefill and 8 greedy decode steps, teacher forcing in bf16;
+    where the reference runs it, chunked prefill at chunk_len=256 against
+    a one-shot prefill of the same tokens (caches and logits)."""
+    from repro_torch.configs import get_config
+    cfg, cuts = group_cfg(get_config(arch))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = tf.init_params(cfg, gen, "cuda")
+    toks, extras = model_inputs(cfg, GROUP_BATCH, GROUP_PROMPT, args.seed,
+                                "cuda")
+    run = serve_run(tf, serve, cfg, params, toks, extras, GROUP_STEPS)
+    pre = cfg.frontend_tokens if cfg.frontend == "vit" else 0
+    last = pre + GROUP_PROMPT + GROUP_STEPS - 1
+    prof = step_profiles(serve, cfg, params, toks, run, last,
+                         dict(decode=3), extras)
+    rec = dict(arch=arch, params=tf.param_count(params), cuts=cuts,
+               layers=cfg.n_layers, card=smi,
+               prefill_event_ms=run["prefill_event_ms"],
+               decode_ms=prof["decode"]["device_us_per_tick"] / 1e3,
+               decode_event_ms=run["decode_event_ms"],
+               tokens_per_s=run["tokens_per_s"], profiles=prof)
+    if arch in DRIFTS:
+        # its own float32 copy holds the check; bf16's drift is recorded
+        rec["teacher_forcing_bf16"] = teacher_forcing(
+            tf, cfg, params, toks, extras, run, float("inf"), arch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tf.tree_map(lambda t: t.float(), params)
+        run32 = serve_run(tf, serve, cfg32, p32, toks, extras, GROUP_STEPS,
+                          feed=run["fed"])
+        rec["teacher_forcing_f32"] = teacher_forcing(
+            tf, cfg32, p32, toks, extras, run32, DRIFTS[arch], f"{arch} f32")
+        del p32, run32
+    else:
+        rec["teacher_forcing_bf16"] = teacher_forcing(
+            tf, cfg, params, toks, extras, run, TF_TOL_BF16, arch)
+    rec.update(serve_bounds(traffic, cfg, GROUP_BATCH, pre + GROUP_PROMPT,
+                            last))
+    check_bounds(rec, ("prefill_event_ms", "decode_ms"))
+    del run
+    if "X" not in cfg.layer_pattern and not cfg.enc_dec:
+        s_max = GROUP_PROMPT + GROUP_STEPS
+        one, c1 = tf.prefill(cfg, params, toks, tf.init_decode_caches(
+            cfg, GROUP_BATCH, s_max, "cuda"))
+        chk, c2 = serve.make_chunked_prefill_step(cfg, GROUP_CHUNK)(
+            params, tf.init_decode_caches(cfg, GROUP_BATCH, s_max, "cuda"),
+            toks)
+        errs = [rel(chk, one)] + [rel(a, b) for a, b in zip(
+            tf.tree_leaves(c2), tf.tree_leaves(c1))]
+        if max(errs) > TF_TOL_BF16:
+            fail(f"{arch}: chunked prefill differs from one-shot by "
+                 f"{max(errs):.3e} (> {TF_TOL_BF16})")
+        rec["chunked_err"] = max(errs)
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def port_steps(tf, cfg, params, inputs, device):
+    """11c.  forward, prefill and two decode steps (rows at positions
+    p0 and p0 - 5) of the port on ``device``; every output moved to the
+    CPU."""
+    toks, steps, extras = (tf.tree_map(lambda t: t.to(device), x)
+                           for x in inputs)
+    pre = cfg.frontend_tokens if cfg.frontend == "vit" else 0
+    b, s = toks.shape
+    out = [tf.forward(cfg, params, toks, **extras)[0]]
+    caches = tf.init_decode_caches(cfg, b, pre + s + 4, device)
+    last, caches = tf.prefill(cfg, params, toks, caches, **extras)
+    out += [last] + tf.tree_leaves(tf.tree_map(torch.clone, caches))
+    for i in range(2):
+        pos = torch.tensor([pre + s + i, pre + s - 5 + i], device=device)
+        logits, caches = tf.decode_step(cfg, params, steps[i], caches, pos)
+        out += [logits] + tf.tree_leaves(tf.tree_map(torch.clone, caches))
+    return [x.cpu() for x in out]
+
+
+def card_vs_cpu_path(args, tf, arch):
+    """11c.  One arch at ``reduced_config`` in float32, the same weights
+    on the CPU and on the card: every output of ``port_steps`` within
+    CPU_TOL of the CPU's (tier-1 holds the CPU port to the reference)."""
+    from repro_torch.configs import reduced_config
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(args.seed),
+                            "cpu")
+    toks, extras = model_inputs(cfg, 2, 32, args.seed, "cpu")
+    steps = torch.from_numpy(np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (2, 2, 1), dtype=np.int32))
+    inputs = (toks, steps, extras)
+    want = port_steps(tf, cfg, params, inputs, "cpu")
+    got = port_steps(tf, cfg, tf.tree_map(lambda t: t.cuda(), params),
+                     inputs, "cuda")
+    errs = [rel(g, w) for g, w in zip(got, want)]
+    if len(got) != len(want) or max(errs) > CPU_TOL:
+        fail(f"{arch}: the card differs from the CPU port by {max(errs):.3e}"
+             f" (> {CPU_TOL})")
+    return max(errs)
+
+
+def model_path(args, counters, smi):
+    """Phase 11: 11a, 11b for every other arch, 11c for all ten; no
+    queue kernel (K1-K4) may launch."""
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import traffic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    full = full_size_path(args, tf, serve, traffic, smi)
+    print(f"model 11a {json.dumps(full)}", flush=True)
+    torch.cuda.empty_cache()
+    groups = {}
+    for arch in ALL_ARCHS:
+        if arch != FULL_ARCH:
+            groups[arch] = group_path(args, tf, serve, traffic, arch, smi)
+            print(f"model 11b {json.dumps(groups[arch])}", flush=True)
+            torch.cuda.empty_cache()
+    t11c = time.perf_counter()
+    cpu = {arch: card_vs_cpu_path(args, tf, arch) for arch in ALL_ARCHS}
+    print(f"model 11c card vs CPU port, max rel err {json.dumps(cpu)} "
+          f"({time.perf_counter() - t11c:.1f} s)", flush=True)
+    launches = {k: w.launches for k, w in counters.items()}
+    if any(launches.values()):
+        fail(f"the model path launched a queue kernel: {launches}")
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s, queue kernel "
+          f"launches {launches}", flush=True)
+    return dict(full=full, groups=groups, cpu=cpu)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2758,6 +3157,9 @@ def main() -> None:
     roofline_path(w4096_run, prod_run, sharded, sampler, records,
                   records_k3, traffic, record_from_traffic)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # 11. the model stack's serving path
+    model_path(args, counters, smi)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []

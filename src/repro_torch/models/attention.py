@@ -1,0 +1,243 @@
+"""Attention: GQA/MQA with RoPE, logit soft-capping, sliding windows,
+flash-style chunked computation, and KV-cache decode (port of the JAX
+package's ``models/attention.py``).
+
+* Prefill and teacher-forcing attention is two nested loops over query
+  and key/value chunks with running (max, sum) accumulators in f32 — the
+  flash recurrence, with the reference's chunk sizes and its ``_NEG``
+  mask — so the S×S score matrix is never materialized.
+* Decode is a single-token query against the cache; each row writes its
+  own position (continuous batching).
+* The reference's score and PV products ask for f32 results
+  (``preferred_element_type``): their operands are upcast to f32 here,
+  so the products come out unrounded as there.  Where the reference
+  rounds (``p`` to the value dtype before PV, cos/sin to the activation
+  dtype in RoPE), so does the port.
+* A cache is written in place and returned: the counterpart of the
+  reference's donated caches.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models.arch_config import ArchConfig
+from repro_torch.models.layers import dense_init
+
+_NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, positions):
+    """[..., head_dim//2] cos/sin tables for integer positions."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv = 1.0 / torch.pow(theta, exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: [B, S, ..., head_dim]; cos/sin: [B|1, S, half].
+
+    Head axes between S and head_dim are broadcast (the grouped 5-D query
+    [B, S, G, Hg, d] and the 4-D key [B, S, G, d] alike).
+    """
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    bshape = tuple(cos.shape[:2]) + (1,) * (x.ndim - 3) + (half,)
+    c = cos.reshape(bshape).to(x.dtype)
+    s = sin.reshape(bshape).to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def attn_init(generator, cfg: ArchConfig, dtype, device="cuda") -> dict:
+    return {
+        "wq": dense_init(generator, cfg.d_model, cfg.q_dim, dtype, device),
+        "wk": dense_init(generator, cfg.d_model, cfg.kv_dim, dtype, device),
+        "wv": dense_init(generator, cfg.d_model, cfg.kv_dim, dtype, device),
+        "wo": dense_init(generator, cfg.q_dim, cfg.d_model, dtype, device),
+    }
+
+
+class KVCache(NamedTuple):
+    """Per-layer decode cache. k/v: [B, S_max, n_kv, head_dim]."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype,
+               device="cuda") -> KVCache:
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# flash-style chunked attention (prefill / teacher forcing)
+# ---------------------------------------------------------------------------
+
+def _softcap(scores, cap: Optional[float]):
+    if cap:
+        return cap * torch.tanh(scores / cap)
+    return scores
+
+
+def _divisor_near(s: int, target: int) -> int:
+    """Largest divisor of s that is <= target (chunk sizes must tile the
+    sequence exactly — whisper's 1500-frame encoder is not a power of 2)."""
+    t = min(s, target)
+    for d in range(t, 0, -1):
+        if s % d == 0:
+            return d
+    return 1
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      softcap: Optional[float], q_chunk: int = 512,
+                      kv_chunk: int = 1024, q_offset: int = 0):
+    """softmax(QK^T/sqrt(d) [+mask]) V without materializing S×S.
+
+    q: [B, Sq, G, Hg, d]  (G = kv groups, Hg = heads per group)
+    k,v: [B, Sk, G, d]
+    returns [B, Sq, G, Hg, d] in q.dtype; accumulation in f32.
+    """
+    b, sq, g, hg, d = q.shape
+    sk = k.shape[1]
+    q_chunk = _divisor_near(sq, q_chunk)
+    kv_chunk = _divisor_near(sk, kv_chunk)
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    dev = q.device
+
+    qs = (q * d ** -0.5).reshape(b, nq, q_chunk, g, hg, d)
+    ks = k.reshape(b, nk, kv_chunk, g, d)
+    vs = v.reshape(b, nk, kv_chunk, g, d)
+    q_pos_base = torch.arange(q_chunk, device=dev) + q_offset
+    k_pos_base = torch.arange(kv_chunk, device=dev)
+
+    outs = []
+    for qi in range(nq):
+        qc = qs[:, qi].float()
+        q_pos = q_pos_base + qi * q_chunk
+        m = torch.full((b, g, hg, q_chunk), _NEG, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, g, hg, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, g, hg, q_chunk, d), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            vc = vs[:, ki]
+            k_pos = k_pos_base + ki * kv_chunk
+            s = torch.einsum("bqghd,bkgd->bghqk", qc, ks[:, ki].float())
+            s = _softcap(s, softcap)
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.where(mask, s, _NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bghqk,bkgd->bghqd",
+                              p.to(vc.dtype).float(), vc.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]   # [B,G,Hg,qc,d]
+        outs.append(out.permute(0, 3, 1, 2, 4))            # [B,qc,G,Hg,d]
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention block (train / prefill / decode)
+# ---------------------------------------------------------------------------
+
+def attn_apply(params, cfg: ArchConfig, x, *, causal: bool = True,
+               window: Optional[int] = None, positions=None,
+               cache: Optional[KVCache] = None, cache_len=None,
+               kv_x=None, chunk_offset: Optional[int] = None):
+    """Full attention block.
+
+    * training / prefill: x [B, S, D]; returns y [B, S, D] (+ the cache
+      if `cache` is given — prefill fills positions [0, S)).
+    * decode: x [B, 1, D], cache given, `positions` [B, 1] per row;
+      returns (y, cache).
+    * chunked prefill: x [B, W, D] with `chunk_offset` (an int) — writes
+      K/V at [offset, offset+W) and attends over the whole cache with the
+      causal mask anchored at the true positions.
+    * cross-attention: kv_x [B, Sk, D] supplies keys/values (no cache, no
+      causal mask) — the whisper decoder over the encoder output.
+
+    The cache is written in place and returned.  `cache_len` is accepted
+    for the reference's signature and unused, as there.
+    """
+    b, s, _ = x.shape
+    g = cfg.n_kv_heads
+    hg = cfg.n_heads // max(cfg.n_kv_heads, 1)
+    hd = cfg.head_dim
+
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+        if chunk_offset is not None:
+            positions = positions + chunk_offset
+
+    q = (x @ params["wq"]).reshape(b, s, g, hg, hd)
+    src = x if kv_x is None else kv_x
+    sk = src.shape[1]
+    k = (src @ params["wk"]).reshape(b, sk, g, hd)
+    v = (src @ params["wv"]).reshape(b, sk, g, hd)
+
+    if kv_x is None:  # self-attention: rotary on q and k
+        cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k.reshape(b, sk, g, 1, hd), cos, sin).reshape(
+            b, sk, g, hd)
+
+    if cache is not None and s == 1:
+        # ---- decode: write one position per row, attend over the cache ----
+        idx = positions[:, 0].long()                        # [B]
+        rows = torch.arange(b, device=x.device)
+        ck, cv = cache
+        ck[rows, idx] = k[:, 0].to(ck.dtype)
+        cv[rows, idx] = v[:, 0].to(cv.dtype)
+        scores = torch.einsum("bqghd,bkgd->bghqk", (q * hd ** -0.5).float(),
+                              ck.float())
+        scores = _softcap(scores, cfg.logit_softcap)
+        kpos = torch.arange(ck.shape[1], device=x.device)
+        valid = kpos[None, :] <= idx[:, None]              # [B, S]
+        if window is not None:
+            valid &= kpos[None, :] > (idx[:, None] - window)
+        scores = torch.where(valid[:, None, None, None, :], scores, _NEG)
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bghqk,bkgd->bqghd", p.to(cv.dtype), cv)
+    elif chunk_offset is not None and cache is not None:
+        # ---- chunked prefill: append W positions, attend over the cache --
+        ck, cv = cache
+        ck[:, chunk_offset:chunk_offset + s] = k.to(ck.dtype)
+        cv[:, chunk_offset:chunk_offset + s] = v.to(cv.dtype)
+        # causal masking vs true positions: cache slots beyond off+W have
+        # k_pos > q_pos and mask out automatically
+        out = chunked_attention(
+            q, ck.to(q.dtype), cv.to(q.dtype), causal=True, window=window,
+            softcap=cfg.logit_softcap, q_offset=chunk_offset)
+    else:
+        if cache is not None:  # prefill: populate cache [0, S)
+            cache.k[:, :s] = k.to(cache.k.dtype)
+            cache.v[:, :s] = v.to(cache.v.dtype)
+        out = chunked_attention(
+            q, k, v, causal=causal and kv_x is None, window=window,
+            softcap=cfg.logit_softcap)
+
+    y = out.reshape(b, s, cfg.q_dim) @ params["wo"]
+    return y, cache

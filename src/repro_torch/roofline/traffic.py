@@ -33,6 +33,13 @@ lower bound: no device time may fall under ``bound_s()``.
   and sizes (``core.distributed._all_gather``: L × 8 bytes gathered).
 
 Queue work is comparisons, not FLOPs: no count carries a FLOP term.
+
+The model stack's serving steps (``model_prefill``, ``model_decode``)
+count the weights each step must read once (from the parameter tree's
+shapes: ``init_params`` on the meta device), the cache bytes it must
+read or write once, and its logits; ``model_step_flops`` counts the
+FLOPs of its products, and ``model_bound_s`` weighs both against the
+card's rates.
 """
 
 from __future__ import annotations
@@ -158,3 +165,123 @@ def dist_tick(cfg) -> Traffic:
     the L lane heads (f32) and sizes (i32) the all-gather assembles."""
     return Traffic(sharded_tick(cfg.shard).hbm_bytes,
                    cfg.shard.n_lanes * 2 * _WORD)
+
+
+# ---------------------------------------------------------------------------
+# the model stack's serving steps
+# ---------------------------------------------------------------------------
+
+def _meta_params(cfg):
+    """The parameter tree's shapes and dtypes (meta tensors: no memory)."""
+    from repro_torch.models import transformer as tf
+    return tf.init_params(cfg, None, "meta")
+
+
+def _leaf_paths(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, f"{path}.{k}")
+        else:
+            yield f"{path}.{k}", v
+
+
+def weight_bytes(cfg, rows: int, experts=None) -> int:
+    """Bytes of the weights a serving step reads once: every parameter,
+    but an untied embedding table only at the ``rows`` token rows it
+    gathers (a tied table is read whole by the unembedding) and, with
+    ``experts``, each MoE layer's expert weights at that many experts."""
+    total = 0
+    for path, t in _leaf_paths(_meta_params(cfg)):
+        n = t.numel() * t.element_size()
+        if path == ".embed" and not cfg.tie_embeddings:
+            n = min(rows, t.shape[0]) * t.shape[1] * t.element_size()
+        elif experts is not None and ".moe.w" in path:
+            n = n * experts // cfg.n_experts
+        total += n
+    return total
+
+
+def model_step_flops(cfg, tokens: int, logits_rows: int) -> float:
+    """A lower bound on a serving step's FLOPs: 2 per weight of the
+    decoder stack's products for each of ``tokens`` tokens (an MoE layer
+    at its top_k experts; a shared attention block once per use), and 2
+    per unembedding weight for each of ``logits_rows`` logits rows.
+    Left out: embedding lookups, attention's score products, norms and
+    an enc-dec arch's encoder and cross K/V."""
+    tree = _meta_params(cfg)
+    per_token = 0
+    uses = cfg.pattern_reps * cfg.layer_pattern.count("A")
+    for path, t in _leaf_paths({k: tree[k] for k in ("stack", "shared_attn")
+                                if k in tree}):
+        if path.startswith(".stack") and t.dim() < 3:
+            continue                   # norms, biases: [reps, n]
+        n = t.numel()
+        if ".moe.w" in path:
+            n = n * cfg.top_k // cfg.n_experts
+        elif path.startswith(".shared_attn"):
+            n *= uses
+        per_token += n
+    return 2.0 * (per_token * tokens
+                  + cfg.vocab_padded * cfg.d_model * logits_rows)
+
+
+def _state_bytes(cfg, batch: int) -> int:
+    """Recurrent state (SSM / xLSTM blocks) of every layer, all rows."""
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    per = {"M": ((cfg.conv_dim - 1) * (cfg.d_inner + 2 * cfg.ssm_state)
+                 * item + cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim
+                 * _WORD),
+           "X": (cfg.d_model * cfg.d_model // cfg.n_heads + cfg.d_model
+                 + cfg.n_heads) * _WORD,
+           "S": 4 * cfg.d_model * _WORD}
+    return batch * cfg.pattern_reps * sum(per.get(k, 0)
+                                          for k in cfg.layer_pattern)
+
+
+def _kv_bytes(cfg, slots: int) -> int:
+    """K and V of ``slots`` (row, position) pairs in every attention
+    layer (enc-dec: the decoder's self-attention)."""
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    n_attn = cfg.pattern_reps * sum(k in "GLA" for k in cfg.layer_pattern)
+    return n_attn * slots * 2 * cfg.n_kv_heads * cfg.head_dim * item
+
+
+def _cross_bytes(cfg, batch: int) -> int:
+    """An enc-dec arch's cross K/V of every decoder layer."""
+    if not cfg.enc_dec:
+        return 0
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    return (cfg.pattern_reps * batch * cfg.enc_seq * 2 * cfg.n_kv_heads
+            * cfg.head_dim * item)
+
+
+def model_prefill(cfg, batch: int, seq: int) -> Traffic:
+    """One prefill of ``batch`` prompts of ``seq`` positions: the weights
+    read once (``weight_bytes``), the K/V of every position, the
+    recurrent states and an enc-dec arch's cross K/V written once, the
+    tokens in, the last position's f32 logits out."""
+    return Traffic(weight_bytes(cfg, batch * seq)
+                   + _kv_bytes(cfg, batch * seq) + _state_bytes(cfg, batch)
+                   + _cross_bytes(cfg, batch) + batch * seq * _WORD
+                   + batch * cfg.vocab_padded * _WORD)
+
+
+def model_decode(cfg, batch: int, attended: int) -> Traffic:
+    """One decode step of ``batch`` rows attending ``attended`` cache
+    slots in all (each row its position + 1): the weights read once (an
+    MoE layer at least its top_k experts), those K/V slots and an
+    enc-dec arch's cross K/V read, the recurrent states read and written,
+    the tokens in and the f32 logits out."""
+    experts = cfg.top_k if cfg.family == "moe" else None
+    return Traffic(weight_bytes(cfg, batch, experts)
+                   + _kv_bytes(cfg, attended) + 2 * _state_bytes(cfg, batch)
+                   + _cross_bytes(cfg, batch) + batch * _WORD
+                   + batch * cfg.vocab_padded * _WORD)
+
+
+def model_bound_s(count: Traffic, flops: float) -> float:
+    """Least seconds for a serving step: the larger of its bytes over
+    the HBM rate and ``flops`` (``model_step_flops``) over the bf16
+    peak."""
+    return Roofline.from_measurements(flops, count.hbm_bytes,
+                                      0.0).bound_step_time()

@@ -193,7 +193,11 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.configs.registry, repro_torch.configs.shapes, "
             "repro_torch.roofline, repro_torch.roofline.hw, "
             "repro_torch.roofline.analysis, repro_torch.roofline.traffic, "
-            "repro_torch.roofline.measure\n"
+            "repro_torch.roofline.measure, repro_torch.models.layers, "
+            "repro_torch.models.attention, repro_torch.models.moe, "
+            "repro_torch.models.mamba2, repro_torch.models.xlstm, "
+            "repro_torch.models.transformer, repro_torch.models.interop, "
+            "repro_torch.launch, repro_torch.launch.serve\n"
             "from repro_torch.configs import ALL_ARCHS, get_config, "
             "reduced_config\n"
             "for a in ALL_ARCHS:\n"
@@ -225,3 +229,10 @@ def test_device_default_is_cuda():
     assert inspect.signature(pqueue.init).parameters["device"].default \
         == "cuda"
     assert torch.device(make_engine.__kwdefaults__["device"]).type == "cuda"
+    from repro_torch.models import transformer as tf
+    assert inspect.signature(tf.Model).parameters["device"].default \
+        == "cuda"
+    assert inspect.signature(tf.init_params).parameters["device"].default \
+        == "cuda"
+    assert inspect.signature(
+        tf.init_decode_caches).parameters["device"].default == "cuda"

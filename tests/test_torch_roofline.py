@@ -189,3 +189,52 @@ def test_record_from_traffic_has_the_reference_fields():
     assert rec["frac_peak_bw"] == pytest.approx(
         2 * 3_350_000 / 0.002 / 3.35e12)
     assert rec["frac_bound"] == pytest.approx(2e-6 / 0.002)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_serving_traffic_counts_the_parameter_tree(arch):
+    """A serving step's count (``traffic.model_prefill`` /
+    ``model_decode``) reads every weight of the parameter tree once (an
+    untied embedding table only at its gathered rows, an MoE decode at
+    top_k experts), and ``model_step_flops`` stays under the reference's
+    2·N·D for a prefill."""
+    from repro_torch.models import transformer as tf
+    cfg = reduced_config(arch)
+    tree = tf.init_params(cfg, None, "meta")
+    item = 2                                       # the bf16 table
+    every = sum(t.numel() * t.element_size() for t in tf.tree_leaves(tree))
+    table = cfg.vocab_padded * cfg.d_model * item
+    rows = 3 * 40
+    want = every - (0 if cfg.tie_embeddings else table - rows
+                    * cfg.d_model * item)
+    assert traffic.weight_bytes(cfg, rows) == want
+    pre = traffic.model_prefill(cfg, 3, 40).hbm_bytes
+    assert pre > want + 3 * cfg.vocab_padded * 4
+    dec = traffic.model_decode(cfg, 3, 3 * 41).hbm_bytes
+    if cfg.family == "moe":
+        experts = sum(t.numel() * t.element_size() for k, t in
+                      tree["stack"]["p0"]["moe"].items() if k != "router")
+        assert traffic.weight_bytes(cfg, 3, cfg.top_k) == (
+            traffic.weight_bytes(cfg, 3) - experts
+            + experts * cfg.top_k // cfg.n_experts)
+    else:
+        assert dec > traffic.weight_bytes(cfg, 3)
+    flops = traffic.model_step_flops(cfg, 120, 3)
+    assert 0 < flops < model_flops(cfg, "prefill", 120)
+    assert traffic.model_bound_s(traffic.Traffic(pre), flops) == max(
+        pre / hw.HBM_BW, flops / hw.PEAK_FLOPS)
+
+
+def test_serving_traffic_at_gemma_2b():
+    """gemma-2b as published: 5.01 GB of bf16 weights read a decode step
+    (1.50 ms at 3.35 TB/s with four rows' caches), a 4 x 512 prefill
+    2·(N - V·d)·D + 2·V·d·4 FLOPs."""
+    cfg = get_config("gemma-2b")
+    n = cfg.param_count() + cfg.d_model           # + the final norm
+    assert traffic.weight_bytes(cfg, 4) == 2 * n
+    dec = traffic.model_decode(cfg, 4, 4 * 544)
+    assert 1.50e-3 < dec.bound_s() < 1.51e-3
+    vd = cfg.vocab_padded * cfg.d_model
+    layers = cfg.n_layers * (cfg._attn_params() + cfg._ffn_params())
+    assert traffic.model_step_flops(cfg, 2048, 4) == 2.0 * (
+        layers * 2048 + vd * 4)
