@@ -1,0 +1,4 @@
+from repro_torch.ckpt.checkpoint import (CheckpointManager,
+                                         restore_checkpoint, save_checkpoint)
+
+__all__ = ["CheckpointManager", "restore_checkpoint", "save_checkpoint"]

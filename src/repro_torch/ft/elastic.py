@@ -1,5 +1,5 @@
-"""Elastic recovery of the serving path (PyTorch port of the JAX
-package's ``ft/elastic.py``, the queue's half).
+"""Elastic recovery of the serving path and of training (PyTorch port of
+the JAX package's ``ft/elastic.py``).
 
 :class:`ElasticDistQueue` wraps a
 :class:`repro_torch.core.distributed.DistShardedQueue` with the full
@@ -15,11 +15,12 @@ remove_device`: drain-and-remap over the survivors, multiset-conserving.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.core.adaptive import LaneScaleController
 from repro_torch.ft.heartbeat import FailureDetector
 from repro_torch.ft.inject import (FaultInjector, FaultSchedule, SimClock,
@@ -200,3 +201,39 @@ class ElasticDistQueue:
         self.clock.advance(self.tick_dt)
         return res, {"removed": removed, "suspected": suspected,
                      "weights": scale, "live": list(self.live)}
+
+
+class ElasticTrainer:
+    """Checkpoint/restart around a training step: saves every
+    ``save_every`` steps and at the end (``CheckpointManager``, newest
+    ``keep``), and resumes from the newest checkpoint after a crash."""
+
+    def __init__(self, ckpt_dir, *, save_every: int = 50, keep: int = 3):
+        self.mgr = CheckpointManager(ckpt_dir, keep=keep)
+        self.save_every = save_every
+
+    def run(self, state, step_fn: Callable, data_fn: Callable,
+            n_steps: int, *, start_step: int = 0,
+            fail_at: Optional[int] = None):
+        """Drive training; optionally simulate a crash at ``fail_at``.
+
+        Returns (state, last_step, metrics_history).  After a simulated
+        failure the caller restarts via :meth:`resume`."""
+        history = []
+        step = start_step
+        while step < n_steps:
+            if fail_at is not None and step == fail_at:
+                raise RuntimeError(f"simulated node failure at step {step}")
+            batch = data_fn(step)
+            state, metrics = step_fn(state, batch)
+            step += 1
+            history.append({k: float(v) for k, v in metrics.items()})
+            if step % self.save_every == 0 or step == n_steps:
+                self.mgr.save(step, state)
+        return state, step, history
+
+    def resume(self, state_like, device=None):
+        """Restore the newest checkpoint into ``state_like``'s structure,
+        onto ``device`` (default: where ``state_like``'s leaves lie).
+        Returns (state, step)."""
+        return self.mgr.restore(state_like, device)

@@ -1,2 +1,3 @@
-"""Launch entry points of the model stack: the serving steps
-(``serve``).  Training, the mesh and the dry run are not ported yet."""
+"""Launch entry points of the model stack on one device: the serving
+steps (``serve``) and the training step (``train``).  The mesh and the
+dry run are not ported yet."""

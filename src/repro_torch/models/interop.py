@@ -1,9 +1,10 @@
-"""Hand the JAX package's model parameters and decode caches to the port
-and back.
+"""Hand the JAX package's model parameters, decode caches and training
+states to the port and back.
 
-Input is a numpy tree of the reference's ``init_params`` or
-``init_decode_caches`` / ``prefill`` output (dicts by key, NamedTuples
-and tuples by position), taken leaf by leaf with ``np.asarray``.  Every
+Input is a numpy tree of the reference's ``init_params``,
+``init_decode_caches`` / ``prefill`` output or ``TrainState`` (dicts by
+key, NamedTuples and tuples by position), taken leaf by leaf with
+``np.asarray``.  Every
 leaf's path, shape and dtype is checked against the port's own tree for
 the same config.  A bfloat16 leaf arrives as its ``np.uint16`` bit view
 (``ml_dtypes.bfloat16`` is readable by neither torch nor a machine
@@ -86,3 +87,14 @@ def to_numpy(tree) -> Any:
             return t.view(torch.int16).numpy().view(np.uint16).copy()
         return t.numpy().copy()
     return tf.tree_map(leaf, tree)
+
+
+def train_state_from_numpy(cfg: ArchConfig, tree, tcfg=None, device="cuda"):
+    """The port's ``TrainState`` from the reference's: the parameters and
+    the optimizer state of ``tcfg`` (AdamW: ``step`` int32, float32
+    ``mu`` / ``nu``; under ``opt_8bit`` AdamW8: int8 ``q_mu``, uint8
+    ``q_nu``, float32 ``s_mu`` / ``s_nu``), checked leaf by leaf against
+    ``init_train_state(cfg, ..., tcfg)``'s."""
+    from repro_torch.launch.train import init_train_state
+    want = init_train_state(cfg, None, tcfg, device="meta")
+    return _from_numpy(want, tree, device, "")

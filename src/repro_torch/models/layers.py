@@ -7,8 +7,7 @@ keeps the reference's rounding points: a product of two tensors of the
 activation dtype rounds to that dtype, a norm works in float32 and
 rounds once at the end.  Draws come from an explicit
 ``torch.Generator``; they cannot match ``jax.random``'s bits, only its
-distributions.  ``softmax_xent`` belongs to training and is not ported
-here.
+distributions.
 """
 
 from __future__ import annotations
@@ -162,3 +161,26 @@ def unembed_apply(cfg: ArchConfig, params, x):
         c = cfg.final_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# the training loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, vocab: int):
+    """Mean token cross-entropy; positions with label < 0 are masked and
+    the padded vocab columns (index >= ``vocab``) are set to -1e30.
+
+    The gold logit is a ``torch.gather``; the reference sums a one-hot
+    ``where`` (a form that shards over the vocab axis), which gives the
+    same float32 value: a sum of zeros and one term is exact."""
+    vp = logits.shape[-1]
+    if vp > vocab:
+        vids = torch.arange(vp, device=logits.device)
+        logits = torch.where(vids >= vocab, -1e30, logits)
+    mask = labels >= 0
+    safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

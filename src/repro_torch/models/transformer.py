@@ -12,15 +12,21 @@ JAX package's ``models/transformer.py``).
 * **Caches are written in place** and returned (the reference donates
   them): attention writes its K/V into the stacked cache; a recurrent
   block's new state is copied into its slice.
+* **Remat.** Under ``cfg.remat == "full"`` the reference wraps each
+  pattern group's scan body in ``jax.checkpoint``; here each group runs
+  under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` in
+  the training forward while grad is enabled, so the backward keeps one
+  activation per group and recomputes the rest.
 * The reference's sharding annotations (``shard``,
-  ``shard_activation_sp``), its gradient-transparent optimization
-  barrier and ``remat`` have no counterpart on one device: outside a
-  mesh they are identities (the reference's ``dist/sharding.py``), and
-  this module runs on one device.
+  ``shard_activation_sp``) and its gradient-transparent optimization
+  barrier have no counterpart on one device: outside a mesh they are
+  identities (the reference's ``dist/sharding.py``), and this module
+  runs on one device.
 
 Serving entry points (``prefill``, ``prefill_chunked``, ``decode_step``)
-run under ``torch.inference_mode()``; ``forward`` keeps autograd for the
-training slice.  ``Model`` owns a parameter tree as an ``nn.Module``.
+run under ``torch.inference_mode()``; ``forward`` and ``loss_fn`` keep
+autograd for training (``repro_torch.launch.train``).  ``Model`` owns a
+parameter tree as an ``nn.Module``.
 """
 
 from __future__ import annotations
@@ -29,13 +35,14 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.attention import attn_apply, attn_init, init_cache
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_apply,
                                        embed_init, mlp_init, norm_init,
-                                       unembed_apply)
+                                       softmax_xent, unembed_apply)
 
 ATTN_KINDS = ("G", "L", "A")
 
@@ -235,30 +242,45 @@ def _enc_dec_layer(gp, cfg: ArchConfig, x, mode: str, cache, pos, enc_out,
     return x, nc
 
 
+def _group(cfg: ArchConfig, params, r: int, x, aux, mode: str, caches,
+           pos, enc_out):
+    """Pattern group ``r`` (the reference's scan body).  Returns
+    (x, aux)."""
+    shared = params.get("shared_attn")
+    gp = _slice(params["stack"], r)
+    if cfg.enc_dec:
+        gp["cross"] = _slice(params["cross"], r)
+    for i, kind in enumerate(cfg.layer_pattern):
+        c = None if caches is None else _slice(caches[f"p{i}"], r)
+        if cfg.enc_dec:
+            xkv = (None if caches is None or "xkv" not in caches
+                   else _slice(caches["xkv"], r))
+            x, nc = _enc_dec_layer(gp, cfg, x, mode, c, pos, enc_out, xkv)
+        else:
+            x, nc, a = _apply_block(gp[f"p{i}"], cfg, kind, x,
+                                    shared_attn=shared, mode=mode, cache=c,
+                                    pos=pos)
+            aux = aux + a
+        if c is not None:
+            _write_back(c, nc)
+    return x, aux
+
+
 def _apply_stack(cfg: ArchConfig, params, x, mode: str, caches=None,
                  pos=None, enc_out=None):
     """The decoder stack, one pattern group per repetition (the
-    reference's scan).  Returns (x, summed aux loss)."""
+    reference's scan), each group recomputed in the backward under
+    ``cfg.remat == "full"``.  Returns (x, summed aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    shared = params.get("shared_attn")
+    remat = (cfg.remat == "full" and mode == "train"
+             and torch.is_grad_enabled())
     for r in range(cfg.pattern_reps):
-        gp = _slice(params["stack"], r)
-        if cfg.enc_dec:
-            gp["cross"] = _slice(params["cross"], r)
-        for i, kind in enumerate(cfg.layer_pattern):
-            c = None if caches is None else _slice(caches[f"p{i}"], r)
-            if cfg.enc_dec:
-                xkv = (None if caches is None or "xkv" not in caches
-                       else _slice(caches["xkv"], r))
-                x, nc = _enc_dec_layer(gp, cfg, x, mode, c, pos, enc_out,
-                                       xkv)
-            else:
-                x, nc, a = _apply_block(gp[f"p{i}"], cfg, kind, x,
-                                        shared_attn=shared, mode=mode,
-                                        cache=c, pos=pos)
-                aux = aux + a
-            if c is not None:
-                _write_back(c, nc)
+        if remat:
+            x, aux = checkpoint(_group, cfg, params, r, x, aux, mode, None,
+                                pos, enc_out, use_reentrant=False)
+        else:
+            x, aux = _group(cfg, params, r, x, aux, mode, caches, pos,
+                            enc_out)
     return x, aux
 
 
@@ -304,7 +326,7 @@ def _sinusoid(s: int, d: int, dtype, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# teacher-forcing forward
+# teacher-forcing forward, the training loss
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ArchConfig, params, tokens, prefix_embeds=None):
@@ -330,6 +352,23 @@ def forward(cfg: ArchConfig, params, tokens, *, prefix_embeds=None,
     x, aux = _apply_stack(cfg, params, x, "train", enc_out=cross_x)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed_apply(cfg, params, x), aux
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    """The training loss: token cross-entropy plus the MoE aux loss.  A
+    VLM's labels are padded with -1 over its prefix (loss on text only).
+    Returns (loss, {"xent", "aux"})."""
+    logits, aux = forward(
+        cfg, params, batch["tokens"],
+        prefix_embeds=batch.get("prefix_embeds"),
+        enc_frames=batch.get("enc_frames"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:   # vlm prefix: loss on text only
+        pad = torch.full((labels.shape[0], logits.shape[1] - labels.shape[1]),
+                         -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    xent = softmax_xent(logits, labels, cfg.vocab)
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

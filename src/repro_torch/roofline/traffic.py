@@ -285,3 +285,44 @@ def model_bound_s(count: Traffic, flops: float) -> float:
     peak."""
     return Roofline.from_measurements(flops, count.hbm_bytes,
                                       0.0).bound_step_time()
+
+
+# ---------------------------------------------------------------------------
+# the training step
+# ---------------------------------------------------------------------------
+
+def _param_bytes(cfg) -> tuple:
+    """(parameter count, parameter bytes) of the whole tree."""
+    leaves = list(t for _, t in _leaf_paths(_meta_params(cfg)))
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def model_train(cfg, batch: int, seq: int, n_micro: int, remat: bool,
+                opt_8bit: bool):
+    """One training step of ``batch`` x ``seq`` tokens in ``n_micro``
+    microbatches (``launch.train.make_train_step``).  Returns (Traffic,
+    FLOPs).
+
+    FLOPs: the forward's products (``model_step_flops``, every position
+    a logits row) times 3 (forward, and the backward's two products a
+    weight), times 4 under ``remat`` (the forward once more).  Bytes, a
+    microbatch: the weights read in each pass (two, three under remat;
+    an untied table at its gathered rows), the gradients in the
+    parameter dtype written and read, the float32 accumulator read and
+    written; then once a step the accumulator read, the moments (float32,
+    or the 8-bit codes and their block scales) and the parameters read
+    and written, and the tokens and labels in.  Activations are left
+    out: a lower bound."""
+    n = min(n_micro, batch)
+    micro_tokens = (batch // n) * seq
+    passes = 3 if remat else 2
+    count, pbytes = _param_bytes(cfg)
+    per_micro = (passes * weight_bytes(cfg, micro_tokens)
+                 + 2 * pbytes + 2 * _WORD * count)
+    moments = (2 * (1 + _WORD / 256) if opt_8bit else 2 * _WORD) * count
+    hbm = (n * per_micro + _WORD * count + 2 * moments + 2 * pbytes
+           + 2 * batch * seq * _WORD)
+    flops = (4 if remat else 3) * model_step_flops(cfg, batch * seq,
+                                                   batch * seq)
+    return Traffic(int(hbm)), flops

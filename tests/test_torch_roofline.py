@@ -238,3 +238,46 @@ def test_serving_traffic_at_gemma_2b():
     layers = cfg.n_layers * (cfg._attn_params() + cfg._ffn_params())
     assert traffic.model_step_flops(cfg, 2048, 4) == 2.0 * (
         layers * 2048 + vd * 4)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_train_traffic_counts_passes_and_optimizer_state(arch):
+    """A train step's count (``traffic.model_train``): the FLOPs are the
+    forward's products times 3, times 4 under remat; each microbatch adds
+    a weight read per pass, the gradients and the float32 accumulator;
+    the 8-bit moments save 16 - 4·(1 + 4/256) bytes a parameter, read
+    and written."""
+    from repro_torch.models import transformer as tf
+    cfg = reduced_config(arch)
+    b, s = 4, 32
+    t1, f1 = traffic.model_train(cfg, b, s, 1, False, False)
+    t4, f4 = traffic.model_train(cfg, b, s, 4, False, False)
+    r4, fr = traffic.model_train(cfg, b, s, 4, True, False)
+    e4, fe = traffic.model_train(cfg, b, s, 4, False, True)
+    assert f1 == f4 == fe == 3 * traffic.model_step_flops(cfg, b * s, b * s)
+    assert fr == 4 * f4 / 3
+    tree = tf.init_params(cfg, None, "meta")
+    count = sum(t.numel() for t in tf.tree_leaves(tree))
+    pbytes = sum(t.numel() * t.element_size() for t in tf.tree_leaves(tree))
+    assert r4.hbm_bytes - t4.hbm_bytes == 4 * traffic.weight_bytes(cfg, s)
+    assert abs(t4.hbm_bytes - e4.hbm_bytes
+               - (16 - 4 * (1 + 4 / 256)) * count) <= 1
+    assert t4.hbm_bytes - t1.hbm_bytes == (
+        4 * (2 * traffic.weight_bytes(cfg, s) + 2 * pbytes + 8 * count)
+        - (2 * traffic.weight_bytes(cfg, b * s) + 2 * pbytes + 8 * count))
+
+
+def test_train_traffic_at_gemma_2b():
+    """gemma-2b (tied, dense): the products' FLOPs equal the reference's
+    6·N·D within 1e-4 (N counts the norms, which are no products; where
+    they part elsewhere, 6·N·D counts an untied table's lookup and an
+    encoder as products, and a shared block once); a 4 x 512 step in
+    4 microbatches moves at least 220 GB (AdamW) or 191 GB (AdamW8),
+    more than its FLOPs take at the bf16 peak."""
+    cfg = get_config("gemma-2b")
+    t, f = traffic.model_train(cfg, 4, 512, 4, False, False)
+    assert f == pytest.approx(model_flops(cfg, "train", 2048), rel=1e-4)
+    assert 220e9 < t.hbm_bytes < 221e9
+    t8, _ = traffic.model_train(cfg, 4, 512, 4, False, True)
+    assert 190e9 < t8.hbm_bytes < 191e9
+    assert traffic.model_bound_s(t, f) == t.hbm_bytes / hw.HBM_BW
