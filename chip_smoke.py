@@ -171,7 +171,36 @@ Phases, each fatal on failure:
    e. ``examples.dev_check_dist`` at D=8 x l=2 on ``["cuda:0"] * 8``:
       its three checks; K3 (grid 2) and K2 ([2, 4]) once per position's
       lane-work tick, and (grid 16, [16, 4]) per lane-work tick of the
-      single-device sharded queue it is held to.
+      single-device sharded queue it is held to;
+13. the model stack on a mesh (``repro_torch.dist``, the layouts and mesh
+    steps of ``launch.train`` / ``launch.serve``; plain PyTorch), a
+    (data 2, model 4) mesh of eight positions on ``["cuda:0"] * 8``,
+    TF32 still off —
+   a. gemma-2b as published, 12a's batch in 4 microbatches: 2 AdamW
+      steps on one device, freed, then on the mesh from the same seeded
+      weights (FSDP, ZeRO-1): loss and gradient norm within 1e-2 of one
+      device's, ms a step, tokens/s, peak memory, each position's bytes
+      held (parameters, moments, the gradient buffer's layout; a ZeRO-1
+      share over 1.05 of an eighth fails);
+   b. gemma-2b served on the mesh (caches with S over ``model``): 11a's
+      prompts and 32 greedy steps against the one-device port on the
+      same weights: every greedy token equal, or a row parted at a tie
+      of one device's top two; an f32 copy fed the same tokens within
+      1e-3 of the logits' scale; prefill and decode device ms beside
+      one device's;
+   c. moonshot-v1-16b-a3b at full width, one pattern group, f32 (one-hot
+      lookups, ``moe_apply_dist``): one AdamW step on the mesh against
+      the one-device step on the same groups (loss and gradient norm
+      within 1e-5, parameters by the first-step rule, moments within
+      1e-4); ``moe_apply_dist`` against ``_moe_local`` (rtol 2e-4, atol
+      2e-5; aux rtol 1e-2); the one-hot lookup bit-equal to the gather;
+   d. ``compressed_psum`` over ``pod`` of a (2, 2, 2) mesh on 13c's
+      gradients (a prompt a pod): every reduced element the int32 sum of
+      the codes times the shared scale over n, bit for bit, and the
+      error buffers holding what quantization left;
+   e. 13c's state (14.9 GB) saved asynchronously from the mesh, restored
+      onto (1, 8) and onto one device bit for bit;
+   K1-K4 never launch in the phase.
 
 The last lines are a JSON record of the kernels and the run's status
 line.  Phase 9's, 10's and 12's rows in it are one per kernel setting
@@ -2766,9 +2795,12 @@ def model_inputs(cfg, batch, prompt, seed, device):
     return toks, extras
 
 
-def serve_run(tf, serve, cfg, params, toks, extras, steps, feed=None):
+def serve_run(tf, serve, cfg, params, toks, extras, steps, feed=None,
+              mesh=None):
     """``make_prefill_step``, then ``steps`` ``make_decode_step``s, each
-    fed the greedy token of the step before (or ``feed``'s).  Returns
+    fed the greedy token of the step before (or ``feed``'s); on ``mesh``
+    (phase 13) the parameters come placed and the caches are placed by
+    ``cache_shardings``.  Returns
     the logits at every generated position [B, steps + 1, V], the tokens
     fed [B, steps], the caches, the prefill's host and event ms (the first
     call of a process also pays its library set-up), the decode steps'
@@ -2778,7 +2810,12 @@ def serve_run(tf, serve, cfg, params, toks, extras, steps, feed=None):
     pre = cfg.frontend_tokens if cfg.frontend == "vit" else 0
     dev = toks.device
     caches = tf.init_decode_caches(cfg, b, pre + s + steps, dev)
-    prefill, decode = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    if mesh is not None:
+        from repro_torch import dist
+        caches = dist.device_put(caches, serve.cache_shardings(cfg, mesh,
+                                                               caches))
+    prefill = serve.make_prefill_step(cfg, mesh=mesh)
+    decode = serve.make_decode_step(cfg, mesh=mesh)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -2838,13 +2875,15 @@ def teacher_forcing(tf, cfg, params, toks, extras, run, tol, label):
                 greedy_equal=float(same.float().mean()))
 
 
-def step_profiles(serve, cfg, params, toks, run, last, reps, extras={}):
+def step_profiles(serve, cfg, params, toks, run, last, reps, extras={},
+                  mesh=None):
     """The device time of a prefill and of the last decode step, each
     called again ``reps[name]`` times under the profiler (both are
     idempotent: they write the same values to the same cache slots):
     every device event summed per call, the share of the window's wall it
     fills, the top kernels."""
-    prefill, decode = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    prefill = serve.make_prefill_step(cfg, mesh=mesh)
+    decode = serve.make_decode_step(cfg, mesh=mesh)
     caches, b = run["caches"], toks.shape[0]
     pos = torch.full((b,), last, dtype=torch.int32, device=toks.device)
     steps = {"prefill": lambda: prefill(params, caches, toks, **extras),
@@ -3212,8 +3251,10 @@ def port_grads(tf, cfg, params, batch):
 
 
 def leaf_err(got, want) -> float:
-    """max |got - want| over the leaf's largest |want|, on the CPU."""
-    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    """max |got - want| over the leaf's largest |want|, on ``want``'s
+    device."""
+    got = got.detach().double().to(want.device)
+    want = want.detach().double()
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"a leaf of shape {tuple(got.shape)}, not finite or not "
              f"{tuple(want.shape)}")
@@ -3252,7 +3293,7 @@ def adam_params_err(got, want, p0, mu, lr, wd):
     either limit."""
     worst = 0.0
     for a, b, p, m in zip(got, want, p0, mu):
-        a, b, p, m = (x.detach().double().cpu() for x in (a, b, p, m))
+        a, b, p, m = (x.detach().double().to(b.device) for x in (a, b, p, m))
         d = (a - b).abs()
         clear = m.abs() > 1e-3 * m.abs().max()
         tight = torch.where(clear, d / (lr * 1e-4 + 1e-7
@@ -3463,6 +3504,441 @@ def train_path(args, ex, counters, lt, bitonic, held, smi):
                 dev_check_dist=dd), lm_kernels + dd_kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the model stack on a mesh
+# ---------------------------------------------------------------------------
+
+#: the mesh: (data 2, model 4), eight positions on the one card
+MESH_SHAPE, MESH_AXES, MESH_POSITIONS = (2, 4), ("data", "model"), 8
+#: 13a: gemma-2b trained on the mesh (12a's batch and microbatches)
+MESH_TRAIN_STEPS = 2
+#: 13a: the mesh's loss and gradient norm against one device's, bf16:
+#: |a - b| over |b| (the ZeRO gradient sums, the clip norm's sum order
+#: and the bf16 updates part the two runs by roundings)
+MESH_TRAIN_TOL = 1e-2
+#: 13b: gemma-2b served on the mesh (11a's prompts and steps); bf16
+#: logits against one device's within TF_TOL_BF16, the f32 copies' within
+#: MESH_SERVE_TOL_F32 (the decode's softmax combined by log-sum-exp over
+#: the positions' S blocks, in f32, where one device softmaxes whole)
+MESH_SERVE_TOL_F32 = 1e-3
+#: 13c: moonshot-v1-16b-a3b at full width, one pattern group, f32: two
+#: prompts a data row of MOE_SEQ tokens, n_micro 2 on the mesh against
+#: n_micro 4 on one device (the same groups: a piece of a microbatch per
+#: data row), capacity factor n_experts / top_k (nothing drops)
+MOE_ARCH, MOE_BATCH, MOE_SEQ = "moonshot-v1-16b-a3b", 4, 512
+#: 13c: f32 loss / gradient norm and MoE outputs (the reference's rtol
+#: 2e-4 / atol 2e-5 for moe_apply_dist against _moe_local)
+MOE_TOL, MOE_RTOL, MOE_ATOL = 1e-5, 2e-4, 2e-5
+
+
+def mesh_of(dist, shape, axes):
+    return dist.make_mesh(shape, axes, devices=["cuda:0"] * MESH_POSITIONS)
+
+
+def placed_zero_opt(dist, tf, meta_opt, shardings):
+    """An optimizer's zero state placed block by block (never whole)."""
+    return dist.tree_map2(lambda s, sh: dist.zeros(s.shape, s.dtype, sh),
+                          meta_opt, shardings)
+
+
+def held_gb(dist, tree, mesh):
+    return [b / 1e9 for b in dist.held_bytes(tree, mesh)]
+
+
+def layout_gb(tf, shardings, shapes, itemsize):
+    """GB each position holds for a layout (its blocks' sizes)."""
+    out = [0] * tf.tree_leaves(shardings)[0].mesh.size
+    for sh, s in zip(tf.tree_leaves(shardings), tf.tree_leaves(shapes)):
+        n = int(np.prod(sh.shard_shape(s.shape)))
+        for p in range(len(out)):
+            out[p] += n * itemsize
+    return [b / 1e9 for b in out]
+
+
+def mesh_train_path(args, dist, train, tf, smi):
+    """13a.  gemma-2b as published (bf16, remat "full"): 12a's batch in 4
+    microbatches, MESH_TRAIN_STEPS AdamW steps on one device, freed, then
+    the same steps on the (2, 4) mesh from the same seeded weights
+    (FSDP, ZeRO-1): loss and gradient norm within MESH_TRAIN_TOL, ms a
+    step, tokens/s, peak memory, each position's bytes held."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed, "cuda")
+    tcfg = train.TrainConfig(n_micro=TRAIN_MICRO, warmup=0,
+                             total_steps=TRAIN_STEPS, fsdp=True, zero1=True)
+    rec = dict(arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               n_micro=TRAIN_MICRO,
+               mesh_shape=dict(zip(MESH_AXES, MESH_SHAPE)), card=smi)
+    runs = {}
+    for where in ("one_device", "mesh"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        if where == "one_device":
+            state = train.init_train_state(cfg, gen, tcfg, device="cuda")
+            step = train.make_train_step(cfg, tcfg)
+        else:
+            mesh = mesh_of(dist, MESH_SHAPE, MESH_AXES)
+            meta = train.init_train_state(cfg, None, tcfg, device="meta")
+            shard = train.state_shardings(cfg, tcfg, mesh, meta)
+            params = dist.device_put(tf.init_params(cfg, gen, "cuda"),
+                                     shard.params)
+            torch.cuda.empty_cache()
+            state = train.TrainState(params, placed_zero_opt(
+                dist, tf, meta.opt, shard.opt))
+            step = train.make_train_step(cfg, tcfg, mesh)
+            rec["held_gb"] = dict(
+                params=held_gb(dist, state.params, mesh),
+                moments=held_gb(dist, state.opt, mesh),
+                grad_buffer=layout_gb(tf, train.grad_shardings(
+                    cfg, mesh, meta.params), meta.params, 4))
+        run = dict(loss=[], grad_norm=[], ms=[])
+        for _ in range(MESH_TRAIN_STEPS):
+            state, m, ms = timed_step(step, state, batch)
+            run["loss"].append(m["loss"])
+            run["grad_norm"].append(m["grad_norm"])
+            run["ms"].append(ms)
+        run.update(ms_per_step=run["ms"][-1], tokens_per_s=(
+            TRAIN_BATCH * TRAIN_SEQ / (1e-3 * run["ms"][-1])),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        runs[where] = run
+        del state, step
+    torch.cuda.empty_cache()
+    rec.update(runs)
+    errs = {k: max(abs(a - b) / abs(b) for a, b in zip(
+        runs["mesh"][k], runs["one_device"][k]))
+        for k in ("loss", "grad_norm")}
+    rec["rel_err"] = errs
+    if not all(np.isfinite(runs["mesh"]["loss"] + runs["mesh"]["grad_norm"])
+               ) or max(errs.values()) > MESH_TRAIN_TOL:
+        fail(f"13a: the mesh's metrics differ from one device's: {errs} "
+             f"(> {MESH_TRAIN_TOL}): {runs}")
+    # ZeRO-1: each position holds about an eighth of the float32 moments
+    # and of the gradient buffer (small leaves replicate over `model`)
+    n = sum(x.numel() for x in tf.tree_leaves(meta.params))
+    held = rec["held_gb"]
+    if max(held["moments"]) > 1.05 * 8e-9 * n / MESH_POSITIONS or max(
+            held["grad_buffer"]) > 1.05 * 4e-9 * n / MESH_POSITIONS:
+        fail(f"13a: a position holds more than its ZeRO-1 share: {held}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def mesh_greedy(run, want, tol, label, cfg):
+    """The mesh's free-running greedy tokens against one device's: equal,
+    or the first that differs (in a row) where one device's top-2 margin
+    is within 2·tol of the logits' scale (a near-tie), the logits up to
+    there within ``tol``.  Returns the equal share and the checks."""
+    got_tok, want_tok = run["fed"], want["fed"]
+    n = got_tok.shape[1]
+    scale = max(1.0, float(want["logits"].float().abs().max()))
+    ties = 0
+    for r in range(got_tok.shape[0]):
+        diff = (got_tok[r] != want_tok[r]).nonzero()
+        upto = int(diff[0]) if len(diff) else n
+        err = rel(run["logits"][r, :upto + 1], want["logits"][r, :upto + 1])
+        if err > tol:
+            fail(f"{label}: row {r}'s logits differ by {err:.3e} (> {tol})")
+        if upto < n:
+            top2 = want["logits"][r, upto, :cfg.vocab].float().topk(2).values
+            if float(top2[0] - top2[1]) > 2 * tol * scale:
+                fail(f"{label}: row {r}'s greedy token {upto} differs "
+                     "where the margin allows")
+            ties += 1
+    return dict(tokens_equal=float((got_tok == want_tok).float().mean()),
+                rows_parted_at_a_tie=ties)
+
+
+def mesh_serve_path(args, dist, serve, tf, smi, phase11):
+    """13b.  gemma-2b whole served on the mesh (params_shardings, caches
+    by cache_shardings: S over `model`): 11a's four prompts of 512 tokens
+    and 32 greedy steps, against the one-device port on the same
+    weights: the greedy tokens, then an f32 copy fed the bf16 tokens;
+    prefill and decode ms beside one device's."""
+    from repro_torch.configs import get_config
+    cfg = get_config(FULL_ARCH)
+    t0 = time.perf_counter()
+    mesh = mesh_of(dist, MESH_SHAPE, MESH_AXES)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = tf.init_params(cfg, gen, "cuda")
+    toks, _ = model_inputs(cfg, FULL_BATCH, FULL_PROMPT, args.seed, "cuda")
+    last = FULL_PROMPT + FULL_STEPS - 1
+    rec = dict(arch=FULL_ARCH, batch=FULL_BATCH, prompt=FULL_PROMPT,
+               steps=FULL_STEPS, card=smi)
+    one = serve_run(tf, serve, cfg, params, toks, {}, FULL_STEPS)
+    placed = dist.device_put(params, serve.params_shardings(cfg, mesh,
+                                                            params))
+    torch.cuda.reset_peak_memory_stats()
+    run = serve_run(tf, serve, cfg, placed, toks, {}, FULL_STEPS, mesh=mesh)
+    rec["greedy"] = mesh_greedy(run, one, TF_TOL_BF16, "13b bf16", cfg)
+    prof = step_profiles(serve, cfg, placed, toks, run, last,
+                         dict(prefill=2, decode=5), mesh=mesh)
+    rec.update(
+        prefill_ms=prof["prefill"]["device_us_per_tick"] / 1e3,
+        decode_ms=prof["decode"]["device_us_per_tick"] / 1e3,
+        prefill_event_ms=run["prefill_event_ms"],
+        decode_event_ms=run["decode_event_ms"],
+        tokens_per_s=run["tokens_per_s"], profiles=prof,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        one_device=dict(prefill_event_ms=one["prefill_event_ms"],
+                        decode_event_ms=one["decode_event_ms"],
+                        tokens_per_s=one["tokens_per_s"],
+                        phase11_prefill_ms=phase11["prefill_ms"],
+                        phase11_decode_ms=phase11["decode_ms"]),
+        held_gb=held_gb(dist, placed, mesh))
+    fed = one["fed"]
+    del run, one, placed
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tf.tree_map(lambda t: t.float(), params)
+    one32 = serve_run(tf, serve, cfg32, params, toks, {}, FULL_STEPS,
+                      feed=fed)
+    want32 = one32["logits"]
+    del one32
+    placed = dist.device_put(params, serve.params_shardings(cfg32, mesh,
+                                                            params))
+    del params
+    torch.cuda.empty_cache()
+    run32 = serve_run(tf, serve, cfg32, placed, toks, {}, FULL_STEPS,
+                      feed=fed, mesh=mesh)
+    rec["f32_err"] = rel(run32["logits"], want32)
+    if rec["f32_err"] > MESH_SERVE_TOL_F32:
+        fail(f"13b: the f32 mesh logits differ by {rec['f32_err']:.3e} "
+             f"(> {MESH_SERVE_TOL_F32})")
+    del run32, placed, want32
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def moe_batch(cfg, seed, device):
+    """MOE_BATCH prompts of MOE_SEQ tokens from the seed, next-token
+    labels with the last position masked (every piece the same count)."""
+    toks, _ = model_inputs(cfg, MOE_BATCH, MOE_SEQ, seed, device)
+    labels = torch.roll(toks, -1, dims=1)
+    labels[:, -1] = -1
+    return dict(tokens=toks, labels=labels)
+
+
+def mesh_moe_path(args, dist, train, tf, moe, layers, smi):
+    """13c.  moonshot-v1-16b-a3b at full width cut to one pattern group,
+    f32: one AdamW step on the mesh (one-hot lookups, moe_apply_dist)
+    against the one-device step on the same groups; moe_apply_dist
+    against _moe_local; the one-hot lookup bit-equal to the gather.
+    Returns the record and the mesh's state and shardings (13d, 13e)."""
+    from repro_torch.configs import get_config
+    cfg, cuts = group_cfg(get_config(MOE_ARCH))
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    mesh = mesh_of(dist, MESH_SHAPE, MESH_AXES)
+    batch = moe_batch(cfg, args.seed, "cuda")
+    kw = dict(warmup=0, total_steps=10, peak_lr=1e-3)
+    tc1 = train.TrainConfig(n_micro=2 * MESH_SHAPE[0], **kw)
+    tcm = train.TrainConfig(n_micro=2, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    state = train.init_train_state(cfg, gen, tc1, device="cuda")
+    p0 = [p.clone() for p in tf.tree_leaves(state.params)]
+    meta = train.init_train_state(cfg, None, tcm, device="meta")
+    shard = train.state_shardings(cfg, tcm, mesh, meta)
+    placed = train.TrainState(dist.device_put(state.params, shard.params),
+                              placed_zero_opt(dist, tf, meta.opt, shard.opt))
+    rec = dict(arch=MOE_ARCH, cuts=cuts, batch=MOE_BATCH, seq=MOE_SEQ,
+               card=smi, params=tf.param_count(state.params))
+    # moe_apply_dist against _moe_local on the group's expert weights
+    mp = tf.tree_map(lambda t: t[0], state.params["stack"]["p0"]["moe"])
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        args.seed)) * 0.1
+    y_local, aux_local = moe._moe_local(mp, cfg, x)
+    with dist.use_mesh(mesh):
+        y, aux = moe.moe_apply(mp, cfg, x)
+    ok = torch.allclose(y, y_local, rtol=MOE_RTOL, atol=MOE_ATOL)
+    rec["moe_dist"] = dict(max_abs_err=float((y - y_local).abs().max()),
+                           aux=float(aux), aux_local=float(aux_local))
+    if not ok or abs(float(aux) - float(aux_local)) > 1e-2 * abs(
+            float(aux_local)):
+        fail(f"13c: moe_apply_dist differs from _moe_local: "
+             f"{rec['moe_dist']}")
+    del y, y_local, x
+    # the one-hot lookup against the gather, on the whole table
+    table = state.params["embed"]
+    a = layers.embed_apply(table, batch["tokens"], False, mode="onehot")
+    b = layers.embed_apply(table, batch["tokens"], False, mode="take")
+    rec["onehot_bit_equal"] = same_bits(a, b)
+    if not rec["onehot_bit_equal"]:
+        fail("13c: the one-hot lookup differs from the gather")
+    del a, b
+    s1, m1, ms1 = timed_step(train.make_train_step(cfg, tc1), state, batch)
+    sm, mm, msm = timed_step(train.make_train_step(cfg, tcm, mesh), placed,
+                             batch)
+    errs = {k: abs(mm[k] - m1[k]) / abs(m1[k]) for k in ("loss",
+                                                          "grad_norm")}
+    full = dist.gather(sm.params, "cuda")
+    params_err = adam_params_err(tf.tree_leaves(full),
+                                 tf.tree_leaves(s1.params), p0,
+                                 tf.tree_leaves(s1.opt.mu), m1["lr"],
+                                 tc1.weight_decay)
+    moments_err = max(leaf_err(a, b) for a, b in zip(
+        tf.tree_leaves(dist.gather(sm.opt.mu, "cuda")),
+        tf.tree_leaves(s1.opt.mu)))
+    del full, s1, state, p0
+    torch.cuda.empty_cache()
+    rec.update(one_device=m1, mesh=mm, one_device_ms=ms1, mesh_ms=msm,
+               rel_err=errs, params_err_share=params_err,
+               mu_err=moments_err,
+               held_gb=dict(params=held_gb(dist, sm.params, mesh),
+                            moments=held_gb(dist, sm.opt, mesh)))
+    if max(errs.values()) > MOE_TOL or params_err > 1.0 or \
+            moments_err > 1e-4:
+        fail(f"13c: the mesh step differs from one device's: {rec}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, sm, shard, cfg, tcm
+
+
+def compress_path(args, dist, compress, tf, train, cfg, state_params):
+    """13d.  compressed_psum over the `pod` axis of a (2, 2, 2) mesh on
+    13c's gradient leaves: pod k holds the gradient of its own prompt
+    (k), each position its block of the ZeRO layout.  Every reduced
+    element equals the int32 sum of the codes times the shared scale over
+    n (recomputed here), and the error buffers hold what quantization
+    left: sum(x) = n·reduced + sum(new error) within float32 rounding."""
+    t0 = time.perf_counter()
+    mesh = mesh_of(dist, (2, 2, 2), ("pod", "data", "model"))
+    params = dist.gather(state_params, "cuda")
+    batch = moe_batch(cfg, args.seed, "cuda")
+    meta = tf.tree_map(lambda t: torch.empty(t.shape, device="meta"), params)
+    layout = tf.tree_leaves(train.grad_shardings(cfg, mesh, meta))
+    grads = []
+    for k in range(2):
+        live = tf.tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = tf.loss_fn(cfg, live, {n: v[k:k + 1]
+                                         for n, v in batch.items()})
+        grads.append(torch.autograd.grad(loss, tf.tree_leaves(live)))
+        del live, loss
+    del params
+    per_pos = [tuple(g[sh.block(g.shape, p)].clone()
+                     for g, sh in zip(grads[mesh.coords(p)["pod"]], layout))
+               for p in range(mesh.size)]
+    del grads
+    torch.cuda.empty_cache()
+    states = [compress.compress_init(g) for g in per_pos]
+    red, new = compress.compressed_psum(per_pos, states, mesh, "pod")
+    worst_id, worst_sum, n_el = 0.0, 0.0, 0
+    for i in range(len(layout)):
+        for group in mesh.groups("pod"):
+            xs = [per_pos[p][i].float() for p in group]
+            scale = torch.stack([torch.clamp(x.abs().max() / 127.0,
+                                             min=1e-12) for x in xs]).max()
+            qs = [torch.clamp(torch.round(x / scale), -127, 127).to(
+                torch.int8) for x in xs]
+            total = sum(q.to(torch.int32) for q in qs)
+            want = total.float() * scale / len(group)
+            for p in group:
+                if not same_bits(red[p][i], want):
+                    fail(f"13d: leaf {i} at position {p}: the reduced "
+                         "value is not the codes' sum times the scale")
+            lhs = sum(x.double() for x in xs)
+            rhs = len(group) * red[group[0]][i].double() + sum(
+                new[p].error[i].double() for p in group)
+            bound = 2.0 ** -22 * len(group) * 127 * float(scale)
+            gap = float((lhs - rhs).abs().max())
+            worst_id = max(worst_id, gap / bound)
+            worst_sum = max(worst_sum, gap)
+            n_el += xs[0].numel()
+    if worst_id > 1.0:
+        fail(f"13d: the error buffers miss what quantization left: "
+             f"{worst_id:.3f} of the float32 bound")
+    del per_pos, red, new, states
+    torch.cuda.empty_cache()
+    return dict(mesh=dict(pod=2, data=2, model=2), leaves=len(layout),
+                elements_per_pod=n_el, identity_share_of_bound=worst_id,
+                identity_max_abs=worst_sum,
+                seconds=time.perf_counter() - t0)
+
+
+def mesh_ckpt_path(dist, train, ckpt, tf, cfg, tcfg, state, shard):
+    """13e.  13c's mesh state saved asynchronously from the (2, 4) mesh,
+    then restored onto (1, 8) (placed by its state_shardings) and onto
+    one device, bit for bit."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_ckpt_"))
+    try:
+        mgr = ckpt.CheckpointManager(tmp, keep=1)
+        t = time.perf_counter()
+        mgr.save(1, state, blocking=False)
+        host_s = time.perf_counter() - t
+        mgr.wait()
+        save_s = time.perf_counter() - t
+        meta = train.init_train_state(cfg, None, tcfg, device="meta")
+        want = tf.tree_leaves(state)
+        out = dict(host_copy_s=host_s, save_s=save_s, bytes=sum(
+            x.numel() * torch.empty((), dtype=x.dtype).element_size()
+            for x in want))
+        mesh18 = mesh_of(dist, (1, 8), MESH_AXES)
+        for name, kw in (("mesh_1x8", dict(shardings=train.state_shardings(
+                cfg, tcfg, mesh18, meta))), ("one_device", dict(
+                device="cuda"))):
+            t = time.perf_counter()
+            got, step = mgr.restore(meta, **kw)
+            out[f"{name}_restore_s"] = time.perf_counter() - t
+            if step != 1:
+                fail(f"13e: restored step {step}")
+            for a, b in zip(tf.tree_leaves(got), want):
+                a = a.read() if isinstance(a, dist.Sharded) else a
+                if not same_bits(a, b.read()):
+                    fail(f"13e: a leaf restored onto {name} differs")
+            del got
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_path(args, counters, smi, phase11):
+    """Phase 13: 13a-13e on a (2, 4) mesh of positions on the one card;
+    no queue kernel (K1-K4) may launch."""
+    from repro_torch import ckpt, dist
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers, moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import compress
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    times = {}
+    rec = mesh_train_path(args, dist, train, tf, smi)
+    times["13a"] = rec["seconds"]
+    print(f"mesh 13a {json.dumps(rec)}", flush=True)
+    rec = mesh_serve_path(args, dist, serve, tf, smi, phase11)
+    times["13b"] = rec["seconds"]
+    print(f"mesh 13b {json.dumps(rec)}", flush=True)
+    rec, state, shard, cfg, tcfg = mesh_moe_path(args, dist, train, tf, moe,
+                                                 layers, smi)
+    times["13c"] = rec["seconds"]
+    print(f"mesh 13c {json.dumps(rec)}", flush=True)
+    rec = mesh_ckpt_path(dist, train, ckpt, tf, cfg, tcfg, state, shard)
+    times["13e"] = rec["seconds"]
+    print(f"mesh 13e {json.dumps(rec)}", flush=True)
+    params = state.params
+    del state
+    torch.cuda.empty_cache()
+    rec = compress_path(args, dist, compress, tf, train, cfg, params)
+    times["13d"] = rec["seconds"]
+    print(f"mesh 13d {json.dumps(rec)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    launches = {k: w.launches for k, w in counters.items()}
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s, by part "
+          f"{json.dumps(times)}, queue kernel launches "
+          f"{json.dumps(launches)}", flush=True)
+    if any(launches.values()):
+        fail(f"the mesh path launched a queue kernel: {launches}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3580,12 +4056,15 @@ def main() -> None:
     print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
 
     # 11. the model stack's serving path
-    model_path(args, counters, smi)
+    phase11 = model_path(args, counters, smi)
 
     # 12. training on one device
     held = held_settings(records, records_k3)
     _, train_kernels = train_path(args, examples, counters, lt, bitonic,
                                   held, smi)
+
+    # 13. the model stack on a mesh of positions on the card
+    mesh_path(args, counters, smi, phase11["full"])
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []

@@ -18,10 +18,12 @@ other's checkpoints:
 Writes go to ``<dir>.tmp`` and are renamed, so a crash mid-save never
 corrupts the newest complete checkpoint.  ``CheckpointManager`` keeps
 the newest K and saves on a thread, after copying every leaf to the
-host: the port's optimizers update their tensors in place.  The
-reference's restore onto another mesh (``shardings=``) waits for the
-mesh slice (ROADMAP queue 1, item 3); here ``device=`` places every
-leaf.
+host: the port's optimizers update their tensors in place.  A placed
+leaf (``dist.Sharded``) is gathered once, from one holder of each
+block, so a checkpoint does not depend on the mesh that wrote it.  On
+restore ``shardings=`` (a tree of ``NamedSharding``, as the reference
+takes) places every leaf on a mesh, which may differ from the one that
+saved; else ``device=`` places every leaf on one device.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import Sharded, place
 from repro_torch.models.transformer import tree_map
 
 _SEP = "::"
@@ -61,9 +64,17 @@ def _flatten(tree) -> dict:
     return out
 
 
+def _crc32(arr: np.ndarray) -> int:
+    """CRC32 of the array's bytes in C order (read in place)."""
+    return zlib.crc32(memoryview(np.ascontiguousarray(arr)).cast("B")) \
+        & 0xFFFFFFFF
+
+
 def _host(leaf) -> np.ndarray:
     """A leaf as numpy, a bfloat16 tensor as its uint16 view (tagged by
     the caller)."""
+    if isinstance(leaf, Sharded):
+        leaf = leaf.read()           # whole on its mesh's first device
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -86,13 +97,14 @@ def save_checkpoint(ckpt_dir: str | Path, step: int, tree,
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
     for key, leaf in _flatten(tree).items():
         arr = _host(leaf)
-        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+        bf16 = isinstance(leaf, (torch.Tensor, Sharded)) and \
+            leaf.dtype == torch.bfloat16
         arrays[key] = arr
         manifest["leaves"][key] = {
             "shape": list(arr.shape),
             "dtype": "bfloat16" if bf16 else str(arr.dtype),
             "stored": "bfloat16:u16" if bf16 else str(arr.dtype),
-            "crc32": zlib.crc32(arr.tobytes()) & 0xFFFFFFFF,
+            "crc32": _crc32(arr),
         }
     np.savez(tmp / "host_0.npz", **arrays)
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
@@ -108,11 +120,14 @@ def _steps(ckpt_dir: Path):
 
 
 def restore_checkpoint(ckpt_dir: str | Path, tree_like, device=None,
-                       step: Optional[int] = None):
+                       step: Optional[int] = None, *, shardings=None):
     """Restore into the structure of ``tree_like`` (the newest step
-    unless ``step`` is given).  Each leaf goes to ``device``, or where
-    ``tree_like``'s leaf lies (the CPU for a leaf that is no tensor).
-    Integrity (CRC32) is verified per leaf.  Returns (tree, step)."""
+    unless ``step`` is given).  With ``shardings`` (a tree of
+    ``NamedSharding`` of that structure) each leaf is placed on its mesh,
+    each position taking only its block; else each leaf goes to
+    ``device``, or where ``tree_like``'s leaf lies (its mesh for a placed
+    leaf, the CPU for a leaf that is no tensor).  Integrity (CRC32) is
+    verified per leaf.  Returns (tree, step)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         steps = _steps(ckpt_dir)
@@ -127,16 +142,21 @@ def restore_checkpoint(ckpt_dir: str | Path, tree_like, device=None,
         if meta is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         arr = data[key]
-        if zlib.crc32(arr.tobytes()) & 0xFFFFFFFF != meta["crc32"]:
+        if _crc32(arr) != meta["crc32"]:
             raise IOError(f"CRC mismatch for {key!r} — corrupt checkpoint")
         if meta["stored"] == "bfloat16:u16":
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
+        if key in flat_sh:
+            return place(t, flat_sh[key])
+        if device is None and isinstance(like, Sharded):
+            return place(t, like.sharding)
         where = device if device is not None else (
             like.device if isinstance(like, torch.Tensor) else "cpu")
         return t.to(where)
 
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     with np.load(d / "host_0.npz") as data:
         return _map_keys(restore, tree_like), step
 
@@ -155,7 +175,8 @@ class CheckpointManager:
         # copy to the host BEFORE the thread starts: the optimizers
         # update the live tensors in place
         host_tree = tree_map(
-            lambda x: x.detach().to("cpu", copy=True)
+            lambda x: x.read().to("cpu") if isinstance(x, Sharded)
+            else x.detach().to("cpu", copy=True)
             if isinstance(x, torch.Tensor) else np.array(x), tree)
 
         def work():
@@ -177,8 +198,9 @@ class CheckpointManager:
         steps = _steps(self.dir)
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, device=None, step=None):
-        return restore_checkpoint(self.dir, tree_like, device, step)
+    def restore(self, tree_like, device=None, step=None, *, shardings=None):
+        return restore_checkpoint(self.dir, tree_like, device, step,
+                                  shardings=shardings)
 
     def _gc(self) -> None:
         for s in _steps(self.dir)[:-self.keep]:

@@ -214,11 +214,14 @@ class ElasticTrainer:
 
     def run(self, state, step_fn: Callable, data_fn: Callable,
             n_steps: int, *, start_step: int = 0,
-            fail_at: Optional[int] = None):
+            fail_at: Optional[int] = None, shardings=None):
         """Drive training; optionally simulate a crash at ``fail_at``.
 
         Returns (state, last_step, metrics_history).  After a simulated
-        failure the caller restarts via :meth:`resume`."""
+        failure the caller restarts via :meth:`resume`, possibly on
+        another mesh (pass the new shardings there).  ``shardings`` is
+        taken for the reference's signature and unused, as there: a
+        placed state is saved whole, whatever its mesh."""
         history = []
         step = start_step
         while step < n_steps:
@@ -232,8 +235,9 @@ class ElasticTrainer:
                 self.mgr.save(step, state)
         return state, step, history
 
-    def resume(self, state_like, device=None):
-        """Restore the newest checkpoint into ``state_like``'s structure,
-        onto ``device`` (default: where ``state_like``'s leaves lie).
-        Returns (state, step)."""
-        return self.mgr.restore(state_like, device)
+    def resume(self, state_like, device=None, *, shardings=None):
+        """Restore the newest checkpoint into ``state_like``'s structure:
+        placed by ``shardings`` (a tree of ``NamedSharding``, the current
+        mesh's), else onto ``device`` (default: where ``state_like``'s
+        leaves lie).  Returns (state, step)."""
+        return self.mgr.restore(state_like, device, shardings=shardings)

@@ -1,27 +1,111 @@
-"""Serving steps: prefill and decode on one device (port of the JAX
-package's ``launch/serve.py``).
+"""Serving steps: prefill and decode, on one device or on a mesh (port
+of the JAX package's ``launch/serve.py``).
 
 Each step runs under ``torch.inference_mode()`` and writes the caches it
 is given in place, returning them: the counterpart of the reference's
-jitted steps, which donate their caches.  The reference's cache and
-parameter shardings (``cache_leaf_spec``, ``*_shardings``) and its AOT
-lowering for the dry run (``lower_*``) belong to the mesh and are not
-ported.
+jitted steps, which donate their caches.
+
+**Layouts** are the reference's: ``params_shardings`` (model-parallel
+plus the ``data`` dim, FSDP-style) and ``cache_shardings``
+(``cache_leaf_spec``: batch over ``data``, a KV cache's sequence dim
+over ``model``, else the last divisible feature dim).
+
+**On a mesh** (``make_prefill_step(cfg, mesh=)``,
+``make_decode_step(cfg, mesh=)``, the parameters and caches placed by
+those shardings) each data row, one after another, gathers every
+parameter onto its device and runs its batch shard through the model
+under ``use_mesh``: a sequence-split KV cache is seen in place as
+``attention.SeqBlocks`` (prefill writes each position's S block; decode
+writes the new K/V into the position that owns ``pos`` and combines the
+positions' partial softmax statistics, the distributed flash decode the
+reference's ``cache_leaf_spec`` asks of GSPMD); every other cache leaf
+(SSM and xLSTM states, a cache whose S dim does not split) is gathered
+for the step and written back to its shards.  The logits come back whole
+on the mesh's first device.  The AOT lowering for the dry run
+(``lower_serve_step``, ``lower_prefill_step``) is not ported here.
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.dist.sharding import (Mesh, NamedSharding, P, Sharded,
+                                       batch_axes, full_box, place,
+                                       row_scope, rows, tree_map_with_path,
+                                       use_mesh)
+from repro_torch.launch.train import param_spec, sanitize_spec, zero1_spec
 from repro_torch.models import transformer as tf
 from repro_torch.models.arch_config import ArchConfig
+from repro_torch.models.attention import KVCache, SeqBlocks
 
 
-def make_decode_step(cfg: ArchConfig):
+def cache_leaf_spec(shape, mesh: Mesh) -> P:
+    """[reps, B, ...]: B -> data; for 5-D KV caches [R, B, S, g, hd],
+    prefer sharding the SEQUENCE dim over `model` (QK scores and PV then
+    reduce locally per shard and only the softmax statistics cross:
+    distributed flash decode).  Falls back to the last divisible feature
+    dim (e.g. SSM states, odd sequence lengths)."""
+    m = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    parts = [None] * len(shape)
+    if len(shape) >= 2:
+        d = mesh.shape.get("data", 1)
+        if shape[1] % d == 0 and shape[1] >= d:
+            parts[1] = "data"
+    if len(shape) == 5 and shape[2] % m == 0 and shape[2] >= m:
+        parts[2] = "model"     # the sequence dim of [R, B, S, g, hd]
+        return P(*parts)
+    # fall back: the last dim divisible by the model axis (feature-most)
+    for i in range(len(shape) - 1, 1, -1):
+        if shape[i] % m == 0 and shape[i] >= m:
+            parts[i] = "model"
+            break
+    return P(*parts)
+
+
+def cache_shardings(cfg: ArchConfig, mesh: Mesh, caches_shape):
+    return tf.tree_map(
+        lambda s: NamedSharding(mesh, cache_leaf_spec(s.shape, mesh)),
+        caches_shape)
+
+
+def params_shardings(cfg: ArchConfig, mesh: Mesh, params_shape):
+    """Serving weights: model-parallel + data-dim sharding (FSDP-style),
+    so that a data replica does not hold params / model."""
+    def one(path, s):
+        ps = param_spec(path, s, tied=cfg.tie_embeddings)
+        return NamedSharding(mesh, zero1_spec(sanitize_spec(
+            ps, s.shape, mesh), s.shape, mesh))
+    return tree_map_with_path(one, params_shape)
+
+
+def _xkv_builder(cfg: ArchConfig, batch: int):
+    """The cross-attention K/V pair an enc-dec arch's prefill adds to its
+    caches ([R, B, enc_seq, g, hd] each), as shapes (``meta``)."""
+    def build():
+        k = torch.zeros((cfg.pattern_reps, batch, cfg.enc_seq,
+                         cfg.n_kv_heads, cfg.head_dim), dtype=tf._dtype(cfg),
+                        device="meta")
+        return (k, k)
+    return build
+
+
+# ---------------------------------------------------------------------------
+# the steps
+# ---------------------------------------------------------------------------
+
+def make_decode_step(cfg: ArchConfig, mesh: Mesh = None):
+    if mesh is not None:
+        return _mesh_step(cfg, mesh, "decode")
+
     def serve_step(params, caches, token, pos):
         return tf.decode_step(cfg, params, token, caches, pos)
     return serve_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, mesh: Mesh = None):
+    if mesh is not None:
+        return _mesh_step(cfg, mesh, "prefill")
+
     def prefill_step(params, caches, tokens, **extras):
         return tf.prefill(cfg, params, tokens, caches, **extras)
     return prefill_step
@@ -29,8 +113,138 @@ def make_prefill_step(cfg: ArchConfig):
 
 def make_chunked_prefill_step(cfg: ArchConfig, chunk_len: int = 2048):
     """The prefill step over chunks of ``chunk_len`` tokens (the
-    reference's ``lower_prefill_step(..., chunked=True)``)."""
+    reference's ``lower_prefill_step(..., chunked=True)``), one
+    device."""
     def prefill_step(params, caches, tokens):
         return tf.prefill_chunked(cfg, params, tokens, caches,
                                   chunk_len=chunk_len)
+    return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# the steps on a mesh
+# ---------------------------------------------------------------------------
+
+def _row_span(b: int, n_rows: int, r: int):
+    """The batch rows data row ``r`` computes: its block where the batch
+    splits over the rows, else all of it on row 0 (and none elsewhere)."""
+    if b % n_rows == 0:
+        k = b // n_rows
+        return r * k, (r + 1) * k
+    return (0, b) if r == 0 else (0, 0)
+
+
+def _batch_part(x, lo: int, hi: int, device):
+    if isinstance(x, Sharded):
+        return x.read((slice(lo, hi),) + full_box(x.shape)[1:], device)
+    return x[lo:hi].to(device)
+
+
+def _seq_view(x: Sharded, lo: int, hi: int):
+    """A KV cache leaf [R, B, S, g, hd] whose S dim is split over ``model`` alone
+    (and B over the batch axes or not at all), as ``SeqBlocks`` over rows
+    [lo, hi) of its first holders, in place; None for any other leaf.
+    The other holders of the same blocks (replicas) are returned too, to
+    be brought level after the step."""
+    if x.ndim != 5 or tuple(x.sharding._parts(5)[2:]) != ("model", None,
+                                                            None):
+        return None
+    parts, offsets, replicas = [], [], []
+    seen = {}
+    for p in range(x.mesh.size):
+        blk = x.block(p)
+        if not (blk[1].start <= lo and hi <= blk[1].stop):
+            continue
+        key = blk[2].start
+        sub = x.shards[p][:, lo - blk[1].start:hi - blk[1].start]
+        if key in seen:
+            replicas.append((seen[key], sub))
+            continue
+        seen[key] = sub
+        parts.append(sub)
+        offsets.append(key)
+    order = sorted(range(len(parts)), key=lambda i: offsets[i])
+    return (SeqBlocks([parts[i] for i in order],
+                      [offsets[i] for i in order], 2), replicas)
+
+
+def _row_caches(caches, lo: int, hi: int, device, kind: str):
+    """A data row's view of placed caches (rows [lo, hi) of the batch),
+    and what to do after its step: (view tree, write-backs, replicas).
+    An enc-dec arch's cross K/V (``"xkv"``) is read whole by decode and
+    left out of prefill, which makes it anew."""
+    back, reps = [], []
+
+    def box_of(x):
+        box = full_box(x.shape)
+        return box[:1] + (slice(lo, hi),) + box[2:]
+
+    def one(x, kv: bool):
+        seq = _seq_view(x, lo, hi) if kv else None
+        if seq is not None:
+            reps.extend(seq[1])
+            return seq[0]
+        t = x.read(box_of(x), device)
+        back.append((x, box_of(x), t))
+        return t
+
+    view = {k: KVCache(*(one(x, True) for x in v)) if isinstance(v, KVCache)
+            else tf.tree_map(lambda x: one(x, False), v)
+            for k, v in caches.items() if k != "xkv"}
+    if "xkv" in caches and kind == "decode":
+        view["xkv"] = tf.tree_map(lambda x: x.read(box_of(x), device),
+                                  caches["xkv"])
+    return view, back, reps
+
+
+def _mesh_step(cfg: ArchConfig, mesh: Mesh, kind: str):
+    data_rows = rows(mesh)
+    home = mesh.devices[0]
+    if not batch_axes(mesh):
+        raise ValueError(f"a mesh without a data axis: {mesh}")
+
+    @torch.inference_mode()
+    def step(params, caches, tokens, pos=None, **extras):
+        b = tokens.shape[0]
+        logits, xkvs = [], []
+        for row in data_rows:
+            lo, hi = _row_span(b, len(data_rows), row.index)
+            if lo == hi:
+                continue
+            full = tf.tree_map(lambda s: s.read(device=row.device), params)
+            toks = _batch_part(tokens, lo, hi, row.device)
+            view, back, reps = _row_caches(caches, lo, hi, row.device,
+                                           kind)
+            with use_mesh(mesh), row_scope(row):
+                if kind == "decode":
+                    out, view = tf.decode_step(
+                        cfg, full, toks, view,
+                        _batch_part(pos, lo, hi, row.device))
+                else:
+                    out, view = tf.prefill(
+                        cfg, full, toks, view,
+                        **{k: _batch_part(v, lo, hi, row.device)
+                           for k, v in extras.items()})
+            for x, box, t in back:
+                x.write(box, t)
+            for src, dst in reps:
+                dst.copy_(src.to(dst.device))
+            if kind == "prefill" and cfg.enc_dec:
+                xkvs.append(view["xkv"])
+            logits.append(out.to(home))
+            del full
+        if xkvs:
+            xkv = tuple(torch.cat([x[i].to(home) for x in xkvs], 1)
+                        for i in range(2))
+            sh = NamedSharding(mesh, cache_leaf_spec(xkv[0].shape, mesh))
+            caches = {**caches, "xkv": tuple(place(t, sh) for t in xkv)}
+        return torch.cat(logits), caches
+
+    if kind == "decode":
+        def serve_step(params, caches, token, pos):
+            return step(params, caches, token, pos)
+        return serve_step
+
+    def prefill_step(params, caches, tokens, **extras):
+        return step(params, caches, tokens, **extras)
     return prefill_step

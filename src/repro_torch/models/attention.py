@@ -15,6 +15,13 @@ package's ``models/attention.py``).
   dtype in RoPE), so does the port.
 * A cache is written in place and returned: the counterpart of the
   reference's donated caches.
+* On a mesh a KV cache may hold its sequence dim over ``model``
+  (``launch.serve.cache_leaf_spec``): a data row then sees each leaf as
+  ``SeqBlocks``, its positions' S blocks in place.  Prefill writes each
+  block its part of the prompt; decode writes the new K/V into the block
+  that owns each row's position, every block scores and sums over its
+  own keys, and the row combines the blocks' (max, sum, output)
+  statistics by log-sum-exp (distributed flash decode).
 """
 
 from __future__ import annotations
@@ -74,6 +81,77 @@ class KVCache(NamedTuple):
     """Per-layer decode cache. k/v: [B, S_max, n_kv, head_dim]."""
     k: torch.Tensor
     v: torch.Tensor
+
+
+class SeqBlocks:
+    """A cache leaf split along its sequence dim into blocks that live on
+    their positions' devices: ``parts[m]`` holds sequence positions
+    [offsets[m], offsets[m] + parts[m].shape[dim]) in place.  Indexing
+    takes a repetition of a stacked ``[R, ...]`` leaf from every block."""
+
+    def __init__(self, parts, offsets, dim: int):
+        self.parts, self.offsets, self.dim = list(parts), list(offsets), dim
+
+    def __getitem__(self, r: int) -> "SeqBlocks":
+        return SeqBlocks([p[r] for p in self.parts], self.offsets,
+                         self.dim - 1)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    def write_prefix(self, value) -> None:
+        """Positions [0, S) of a [B, S, ...] leaf from ``value``."""
+        s = value.shape[1]
+        for part, off in zip(self.parts, self.offsets):
+            n = min(part.shape[1], s - off)
+            if n > 0:
+                part[:, :n] = value[:, off:off + n].to(part.device,
+                                                       part.dtype)
+
+
+def _decode_blocks(cache: KVCache, q, k, v, idx, window, softcap):
+    """Decode against a sequence-split cache (``SeqBlocks`` leaves):
+    write each row's new K/V into the block that owns its position, then
+    each block's (max, sum, f32 output) over its keys on its own device,
+    combined on ``q``'s device in block order by log-sum-exp."""
+    ck, cv = cache
+    b, _, g, hg, hd = q.shape
+    qs = (q * hd ** -0.5).float()
+    stats = []
+    for pk, pv, off in zip(ck.parts, cv.parts, ck.offsets):
+        dev, n = pk.device, pk.shape[1]
+        rows = torch.arange(b, device=dev)
+        li = idx.to(dev) - off
+        mine = ((li >= 0) & (li < n))[:, None, None]
+        li = li.clamp(0, n - 1)
+        pk[rows, li] = torch.where(mine, k[:, 0].to(dev, pk.dtype),
+                                   pk[rows, li])
+        pv[rows, li] = torch.where(mine, v[:, 0].to(dev, pv.dtype),
+                                   pv[rows, li])
+        s = torch.einsum("bqghd,bkgd->bghqk", qs.to(dev), pk.float())
+        s = _softcap(s, softcap)
+        kpos = torch.arange(off, off + n, device=dev)
+        i = idx.to(dev)
+        valid = kpos[None, :] <= i[:, None]
+        if window is not None:
+            valid &= kpos[None, :] > (i[:, None] - window)
+        s = torch.where(valid[:, None, None, None, :], s, _NEG)
+        m = s.amax(-1)                                   # [B, G, Hg, 1]
+        p = torch.exp(s - m[..., None])
+        o = torch.einsum("bghqk,bkgd->bghqd", p, pv.float())
+        stats.append(tuple(t.to(q.device) for t in (m, p.sum(-1), o)))
+    m_all = stats[0][0]
+    for m, _, _ in stats[1:]:
+        m_all = torch.maximum(m_all, m)
+    l_all = torch.zeros_like(m_all)
+    acc = torch.zeros_like(stats[0][2])
+    for m, l, o in stats:
+        corr = torch.exp(m - m_all)
+        l_all = l_all + l * corr
+        acc = acc + o * corr[..., None]
+    out = acc / l_all[..., None]                         # [B, G, Hg, 1, d]
+    return out.permute(0, 3, 1, 2, 4).to(cv.dtype)
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype,
@@ -204,7 +282,10 @@ def attn_apply(params, cfg: ArchConfig, x, *, causal: bool = True,
         k = apply_rope(k.reshape(b, sk, g, 1, hd), cos, sin).reshape(
             b, sk, g, hd)
 
-    if cache is not None and s == 1:
+    if cache is not None and s == 1 and isinstance(cache.k, SeqBlocks):
+        out = _decode_blocks(cache, q, k, v, positions[:, 0].long(), window,
+                             cfg.logit_softcap)
+    elif cache is not None and s == 1:
         # ---- decode: write one position per row, attend over the cache ----
         idx = positions[:, 0].long()                        # [B]
         rows = torch.arange(b, device=x.device)
@@ -232,7 +313,10 @@ def attn_apply(params, cfg: ArchConfig, x, *, causal: bool = True,
             q, ck.to(q.dtype), cv.to(q.dtype), causal=True, window=window,
             softcap=cfg.logit_softcap, q_offset=chunk_offset)
     else:
-        if cache is not None:  # prefill: populate cache [0, S)
+        if isinstance(cache, KVCache) and isinstance(cache.k, SeqBlocks):
+            cache.k.write_prefix(k)
+            cache.v.write_prefix(v)
+        elif cache is not None:  # prefill: populate cache [0, S)
             cache.k[:, :s] = k.to(cache.k.dtype)
             cache.v[:, :s] = v.to(cache.v.dtype)
         out = chunked_attention(

@@ -20,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import Sharded, place, tree_map2
 from repro_torch.models import transformer as tf
 from repro_torch.models.arch_config import ArchConfig
 
@@ -80,8 +81,10 @@ def caches_from_numpy(cfg: ArchConfig, tree, batch: int, s_max: int,
 def to_numpy(tree) -> Any:
     """A copy of a tree of the port's tensors as numpy, bfloat16 leaves as
     their ``np.uint16`` bit view (a copy: the port writes caches in
-    place)."""
+    place).  A placed leaf (``dist.Sharded``) is gathered first."""
     def leaf(t):
+        if isinstance(t, Sharded):
+            t = t.read(device="cpu")
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16).copy()
@@ -98,3 +101,19 @@ def train_state_from_numpy(cfg: ArchConfig, tree, tcfg=None, device="cuda"):
     from repro_torch.launch.train import init_train_state
     want = init_train_state(cfg, None, tcfg, device="meta")
     return _from_numpy(want, tree, device, "")
+
+
+def placed_from_numpy(tree, shardings):
+    """A numpy tree (bfloat16 leaves as their ``np.uint16`` view, as the
+    functions above take them) placed on a mesh leaf by leaf by the
+    port's tree of ``NamedSharding`` (whose structure the result takes):
+    each position gets only its block.  Check the leaves' paths and
+    shapes with one of the ``*_from_numpy`` functions where they may
+    differ."""
+    def one(sh, x):
+        x = np.asarray(x)
+        t = torch.from_numpy(np.array(x))
+        if x.dtype == np.uint16:
+            t = t.view(torch.int16).view(torch.bfloat16)
+        return place(t, sh)
+    return tree_map2(one, shardings, tree)

@@ -140,11 +140,22 @@ def embed_init(generator, cfg: ArchConfig, dtype, device="cuda"):
 
 def embed_apply(embed, tokens, scale_by_dim: bool = True,
                 mode: str = "take"):
-    """Token embedding lookup (a gather).  The reference's ``"onehot"``
-    mode serves a vocab-sharded table under a mesh and is not ported."""
-    if mode != "take":
-        raise NotImplementedError(f"embedding mode {mode!r}: only 'take'")
-    x = embed[tokens.long()]
+    """Token embedding lookup.
+
+    mode="take": a gather.  mode="onehot": the reference's lookup for a
+    vocab-sharded table under a mesh, a one-hot matrix (an iota
+    comparison, in the table's dtype) times the table: a contraction in
+    both directions, and bit-equal to the gather (each output is one
+    product by 1.0 and zeros)."""
+    if mode == "onehot":
+        vids = torch.arange(embed.shape[0], dtype=torch.int32,
+                            device=tokens.device)
+        onehot = (tokens[..., None] == vids).to(embed.dtype)
+        x = onehot @ embed
+    elif mode == "take":
+        x = embed[tokens.long()]
+    else:
+        raise ValueError(f"unknown embedding mode {mode!r}")
     if scale_by_dim:
         # sqrt(d) is rounded to the activation dtype before the multiply
         # (45.25 in bf16 for d=2048), as the reference does

@@ -19,9 +19,11 @@ JAX package's ``models/transformer.py``).
   activation per group and recomputes the rest.
 * The reference's sharding annotations (``shard``,
   ``shard_activation_sp``) and its gradient-transparent optimization
-  barrier have no counterpart on one device: outside a mesh they are
-  identities (the reference's ``dist/sharding.py``), and this module
-  runs on one device.
+  barrier have no counterpart: layout is owned by placement
+  (``repro_torch.dist``).  Under ``use_mesh`` (the mesh steps of
+  ``launch/train.py`` and ``launch/serve.py`` run a data row's share of
+  the batch through these functions) an untied table is looked up
+  one-hot (``_embed_mode``) and an MoE layer runs expert-parallel.
 
 Serving entry points (``prefill``, ``prefill_chunked``, ``decode_step``)
 run under ``torch.inference_mode()``; ``forward`` and ``loss_fn`` keep
@@ -31,12 +33,14 @@ parameter tree as an ``nn.Module``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import current_context, current_mesh, entered
 from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.attention import attn_apply, attn_init, init_cache
@@ -49,6 +53,14 @@ ATTN_KINDS = ("G", "L", "A")
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _embed_mode(cfg: ArchConfig) -> str:
+    """One-hot lookups for untied tables under a mesh; a gather
+    elsewhere (``layers.embed_apply``)."""
+    if not cfg.tie_embeddings and current_mesh() is not None:
+        return "onehot"
+    return "take"
 
 
 # ---------------------------------------------------------------------------
@@ -274,10 +286,15 @@ def _apply_stack(cfg: ArchConfig, params, x, mode: str, caches=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = (cfg.remat == "full" and mode == "train"
              and torch.is_grad_enabled())
+    # the recompute runs where the backward runs (on a CUDA device, an
+    # autograd worker thread): it re-enters the forward's mesh context
+    ctx = current_context()
+    contexts = lambda: (contextlib.nullcontext(), entered(ctx))  # noqa: E731
     for r in range(cfg.pattern_reps):
         if remat:
             x, aux = checkpoint(_group, cfg, params, r, x, aux, mode, None,
-                                pos, enc_out, use_reentrant=False)
+                                pos, enc_out, use_reentrant=False,
+                                context_fn=contexts)
         else:
             x, aux = _group(cfg, params, r, x, aux, mode, caches, pos,
                             enc_out)
@@ -330,7 +347,8 @@ def _sinusoid(s: int, d: int, dtype, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ArchConfig, params, tokens, prefix_embeds=None):
-    x = embed_apply(params["embed"], tokens, cfg.embed_scale)
+    x = embed_apply(params["embed"], tokens, cfg.embed_scale,
+                    mode=_embed_mode(cfg))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -462,7 +480,8 @@ def decode_step(cfg: ArchConfig, params, token, caches, pos):
     enc_dec archs the caches carry "xkv" (the cross K/V from prefill),
     read and passed through unchanged.
     """
-    x = embed_apply(params["embed"], token, cfg.embed_scale)
+    x = embed_apply(params["embed"], token, cfg.embed_scale,
+                    mode=_embed_mode(cfg))
     x, _ = _apply_stack(cfg, params, x, "decode", caches=caches, pos=pos)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed_apply(cfg, params, x), caches

@@ -60,11 +60,18 @@ def adamw_update(params, grads, state: AdamWState, *, lr,
     b1c, b2c = bias_corrections(step, b1, b2)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state.mu), tree_leaves(state.nu)):
-        g = g.float() * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * torch.square(g))
-        u = (m / b1c) / (torch.sqrt(v / b2c) + eps) \
-            + weight_decay * p.float()
-        p.copy_((p.float() - lr * u).to(p.dtype))
+        adamw_leaf(p, g, m, v, scale=scale, lr=lr, b1=b1, b2=b2, b1c=b1c,
+                   b2c=b2c, eps=eps, weight_decay=weight_decay)
     return params, AdamWState(step, state.mu, state.nu), {
         "grad_norm": gnorm, "lr": lr}
+
+
+def adamw_leaf(p, g, m, v, *, scale, lr, b1, b2, b1c, b2c, eps,
+               weight_decay) -> None:
+    """One leaf's update in place (any box of it: every operation is
+    elementwise), the clip ``scale`` and bias corrections given."""
+    g = g.float() * scale
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * torch.square(g))
+    u = (m / b1c) / (torch.sqrt(v / b2c) + eps) + weight_decay * p.float()
+    p.copy_((p.float() - lr * u).to(p.dtype))

@@ -106,15 +106,24 @@ def adamw8_update(params, grads, state: AdamW8State, *, lr,
             tree_leaves(params), tree_leaves(grads),
             tree_leaves(state.q_mu), tree_leaves(state.s_mu),
             tree_leaves(state.q_nu), tree_leaves(state.s_nu)):
-        g = g.float() * scale
-        mu = b1 * _dequantize(q_mu, s_mu) + (1 - b1) * g
-        nu = b2 * _dequantize_nu(q_nu, s_nu) + (1 - b2) * torch.square(g)
-        u = (mu / b1c) / (torch.sqrt(nu / b2c) + eps) \
-            + weight_decay * p.float()
-        p.copy_((p.float() - lr * u).to(p.dtype))
-        for dst, src in zip((q_mu, s_mu), _quantize(mu)):
-            dst.copy_(src)
-        for dst, src in zip((q_nu, s_nu), _quantize_nu(nu)):
-            dst.copy_(src)
+        adamw8_leaf(p, g, q_mu, s_mu, q_nu, s_nu, scale=scale, lr=lr, b1=b1,
+                    b2=b2, b1c=b1c, b2c=b2c, eps=eps,
+                    weight_decay=weight_decay)
     return params, AdamW8State(step, state.q_mu, state.s_mu, state.q_nu,
                                state.s_nu), {"grad_norm": gnorm, "lr": lr}
+
+
+def adamw8_leaf(p, g, q_mu, s_mu, q_nu, s_nu, *, scale, lr, b1, b2, b1c,
+                b2c, eps, weight_decay) -> None:
+    """One leaf's update in place: any box of it that holds whole rows of
+    the last dim (the quantization blocks run along it), its scales'
+    box beside it."""
+    g = g.float() * scale
+    mu = b1 * _dequantize(q_mu, s_mu) + (1 - b1) * g
+    nu = b2 * _dequantize_nu(q_nu, s_nu) + (1 - b2) * torch.square(g)
+    u = (mu / b1c) / (torch.sqrt(nu / b2c) + eps) + weight_decay * p.float()
+    p.copy_((p.float() - lr * u).to(p.dtype))
+    for dst, src in zip((q_mu, s_mu), _quantize(mu)):
+        dst.copy_(src)
+    for dst, src in zip((q_nu, s_nu), _quantize_nu(nu)):
+        dst.copy_(src)

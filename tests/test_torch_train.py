@@ -255,9 +255,15 @@ def test_train_step_matches_reference(arch, n_micro):
 
 
 def test_train_step_on_a_mesh_waits_for_the_mesh_slice():
+    """The mesh slice has landed: a ``dist`` mesh gives the mesh step
+    (``tests/test_torch_mesh.py`` holds it to the reference's); a bare
+    list of devices is refused."""
+    from repro_torch.dist import make_mesh
     cfg = reduced_config("gemma-2b")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(TypeError, match="make_mesh"):
         make_train_step(cfg, TrainConfig(), mesh=["cpu"])
+    mesh = make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 8)
+    assert callable(make_train_step(cfg, TrainConfig(), mesh=mesh))
 
 
 @pytest.mark.parametrize("opt_8bit", [False, True])
