@@ -201,6 +201,24 @@ Phases, each fatal on failure:
    e. 13c's state (14.9 GB) saved asynchronously from the mesh, restored
       onto (1, 8) and onto one device bit for bit;
    K1-K4 never launch in the phase.
+14. the dry run (``repro_torch.launch.dryrun``, ``roofline.trace_stats``)
+    held to the card —
+   a. 12a's gemma-2b train step (4 x 512 tokens, 4 microbatches, remat),
+      on one device and on 13a's (2, 4) mesh, then 11a's prefill of four
+      512-token prompts and one decode step: each placed on the card,
+      timed, run again under ``FlopCounterMode``, and traced by the dry
+      run with every position on one fake device (as on the one card):
+      argument bytes equal the bytes placed (``dist.held_bytes``) and
+      ``memory_allocated``'s growth within the allocator's rounding (512
+      bytes a tensor, 1 MiB one of 1 MiB or more), FLOPs equal, the
+      traced temporaries within 5 % + 64 MiB of the card's
+      (``max_memory_allocated`` above the step's start), no time under
+      the compute term or the ``traffic`` bound; the time over the
+      traced bytes' ``memory_s`` printed;
+   b. gemma-2b ``decode_32k`` on the 16 x 16 production mesh traced on
+      the card's host (fake devices, no card memory): status OK within
+      300 s, its report row printed;
+   K1-K4 never launch in the phase.
 
 The last lines are a JSON record of the kernels and the run's status
 line.  Phase 9's, 10's and 12's rows in it are one per kernel setting
@@ -3939,6 +3957,258 @@ def mesh_path(args, counters, smi, phase11):
         fail(f"the mesh path launched a queue kernel: {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry run's count held to the card
+# ---------------------------------------------------------------------------
+
+#: 14a: |measured - traced| temporaries (bytes above the arguments at the
+#: step's peak) within this share of the traced ones plus DRY_PEAK_SLACK
+#: (PERF.md §6, the prediction written before the first card run)
+DRY_PEAK_TOL, DRY_PEAK_SLACK = 0.05, 64 * 2 ** 20
+#: 14a: memory_allocated's rounding per tensor: a block rounds up to 512
+#: bytes, and a block of 1 MiB or more keeps the rest of its segment when
+#: that is under 1 MiB (the caching allocator splits off no less)
+ALLOC_BLOCK, ALLOC_LARGE = 512, 2 ** 20
+#: 14b: the production cell traced on the card's host, and its budget
+DRY_CELL, DRY_BUDGET_S = ("gemma-2b", "decode_32k"), 300.0
+
+
+def tensors_of(tree):
+    from repro_torch.roofline.trace_stats import tree_tensors
+    return list(tree_tensors(tree))
+
+
+def tree_nbytes(tree) -> int:
+    seen, n = set(), 0
+    for t in tensors_of(tree):
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            n += st.nbytes()
+    return n
+
+
+def measured_step(step, args, kwargs):
+    """One timed call (CUDA events, host included), then one under
+    ``FlopCounterMode``: (ms, FLOPs, bytes above the arguments at the
+    timed call's peak)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step(*args, **kwargs)
+    end.record()
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base
+    ms = start.elapsed_time(end)
+    with FlopCounterMode(display=False) as fc:
+        step(*args, **kwargs)
+    torch.cuda.synchronize()
+    return ms, fc.get_total_flops(), temp
+
+
+def hold_count(label, lowered, placed_bytes, grown, ms, flops, temp, bound,
+               smi):
+    """The dry run of ``lowered`` (one fake device: the card) against the
+    card's run of the same step; fails the phase on a miss."""
+    from repro_torch.roofline import hw
+    _, cnt = lowered.trace()
+    dev = lowered.devices[0]
+    st = cnt.stats(dev)
+    traced_temp = st.peak_bytes - st.argument_bytes
+    rec = dict(step=label, card=smi, argument_bytes=st.argument_bytes,
+               held_bytes=placed_bytes, allocated_growth=grown,
+               flops=st.flops, card_flops=flops, traced_temp=traced_temp,
+               card_temp=temp, ms=ms, compute_ms=1e3 * st.flops /
+               hw.PEAK_FLOPS, memory_ms=1e3 * st.hbm_bytes / hw.HBM_BW,
+               bound_ms=bound, hbm_bytes=st.hbm_bytes,
+               link_bytes=st.link_bytes, ops=st.ops)
+    rec["ms_over_memory_ms"] = ms / rec["memory_ms"]
+    slack = sum(ALLOC_LARGE if t.numel() * t.element_size() >= ALLOC_LARGE
+                else ALLOC_BLOCK
+                for t in tensors_of((lowered.args, lowered.kwargs)))
+    misses = []
+    if st.argument_bytes != placed_bytes:
+        misses.append("argument bytes")
+    if not 0 <= grown - st.argument_bytes <= slack:
+        misses.append("allocated growth")
+    if st.flops != flops:
+        misses.append("FLOPs")
+    if abs(temp - traced_temp) > DRY_PEAK_TOL * traced_temp + DRY_PEAK_SLACK:
+        misses.append("peak")
+    if ms < rec["compute_ms"] or ms < bound:
+        misses.append("a time under its bound")
+    print(f"dryrun 14a {json.dumps(rec)}", flush=True)
+    if misses:
+        fail(f"14a {label}: the dry run misses the card: {misses}: {rec}")
+    return rec
+
+
+def dry_train(args, train, tf, dist, traffic, smi, mesh_run):
+    """14a, training: 12a's step on one device, then 13a's on the (2, 4)
+    mesh of positions on the card, each placed, timed, counted, and
+    traced by the dry run on one fake device."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = train.TrainConfig(n_micro=TRAIN_MICRO, warmup=0,
+                             total_steps=TRAIN_STEPS, fsdp=True, zero1=True)
+    specs = {k: ((TRAIN_BATCH, TRAIN_SEQ), torch.int32)
+             for k in ("tokens", "labels")}
+    count, flops = traffic.model_train(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                       TRAIN_MICRO, True, False)
+    bound = 1e3 * traffic.model_bound_s(count, flops)
+    out = []
+    for where in ("one_device", "mesh"):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed, "cuda")
+        if where == "one_device":
+            state = train.init_train_state(cfg, gen, tcfg, device="cuda")
+            step = train.make_train_step(cfg, tcfg)
+            held = tree_nbytes((state, batch))
+            lowered = train.lower_train_step(cfg, tcfg, None, specs)
+        else:
+            mesh = mesh_of(dist, MESH_SHAPE, MESH_AXES)
+            meta = train.init_train_state(cfg, None, tcfg, device="meta")
+            shard = train.state_shardings(cfg, tcfg, mesh, meta)
+            params = dist.device_put(tf.init_params(cfg, gen, "cuda"),
+                                     shard.params)
+            batch = dist.device_put(batch, train.batch_specs(cfg, mesh))
+            state = train.TrainState(params, placed_zero_opt(
+                dist, tf, meta.opt, shard.opt))
+            step = train.make_train_step(cfg, tcfg, mesh)
+            held = sum(dist.held_bytes((state, batch), mesh))
+            lowered = train.lower_train_step(
+                cfg, tcfg, mesh_run(["cpu:0"] * MESH_POSITIONS), specs)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        ms, card_flops, temp = measured_step(step, (state, batch), {})
+        out.append(hold_count(f"train {where}", lowered, held, grown, ms,
+                              card_flops, temp, bound, smi))
+        # nothing of this step may be freed inside the next one's count
+        del state, batch, step, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def dry_serve(args, serve, tf, traffic, smi):
+    """14a, serving: 11a's prefill of four 512-token prompts and one
+    decode step at position 512 (caches of 544, filled by a prefill
+    first), placed, timed, counted and traced by the dry run on one fake
+    device."""
+    from repro_torch.configs import get_config
+    cfg = get_config(FULL_ARCH)
+    smax = FULL_PROMPT + FULL_STEPS
+    out = []
+    for kind in ("prefill", "decode"):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        params = tf.init_params(cfg, gen, "cuda")
+        toks, _ = model_inputs(cfg, FULL_BATCH, FULL_PROMPT, args.seed,
+                               "cuda")
+        if kind == "prefill":
+            caches = tf.init_decode_caches(cfg, FULL_BATCH, FULL_PROMPT,
+                                           "cuda")
+            step = serve.make_prefill_step(cfg)
+            call = (params, caches, toks)
+            lowered = serve.lower_prefill_step(
+                cfg, None, batch=FULL_BATCH, seq_len=FULL_PROMPT,
+                specs={"tokens": ((FULL_BATCH, FULL_PROMPT), torch.int32)})
+            count = traffic.model_prefill(cfg, FULL_BATCH, FULL_PROMPT)
+            flops = traffic.model_step_flops(cfg, FULL_BATCH * FULL_PROMPT,
+                                             FULL_BATCH)
+        else:
+            caches = tf.init_decode_caches(cfg, FULL_BATCH, smax, "cuda")
+            serve.make_prefill_step(cfg)(params, caches, toks)
+            tok = toks[:, -1:].contiguous()
+            del toks
+            pos = torch.full((FULL_BATCH,), FULL_PROMPT, dtype=torch.int32,
+                             device="cuda")
+            step = serve.make_decode_step(cfg)
+            call = (params, caches, tok, pos)
+            lowered = serve.lower_serve_step(
+                cfg, None, batch=FULL_BATCH, seq_len=smax,
+                specs={"token": ((FULL_BATCH, 1), torch.int32),
+                       "pos": ((FULL_BATCH,), torch.int32)})
+            count = traffic.model_decode(cfg, FULL_BATCH,
+                                         FULL_BATCH * (FULL_PROMPT + 1))
+            flops = traffic.model_step_flops(cfg, FULL_BATCH, FULL_BATCH)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        ms, card_flops, temp = measured_step(step, call, {})
+        out.append(hold_count(kind, lowered, tree_nbytes(call), grown, ms,
+                              card_flops, temp,
+                              1e3 * traffic.model_bound_s(count, flops),
+                              smi))
+        # nothing of this step may be freed inside the next one's count
+        del params, caches, call, step, gen
+        toks = None
+    torch.cuda.empty_cache()
+    return out
+
+
+def dry_cell(smi):
+    """14b: one production cell traced on the card's host (fake devices,
+    no card memory), its report row printed."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import hw, report
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    res = dryrun.run_cell(*DRY_CELL, False, out, hbm_bytes=hw.hbm_bytes())
+    (out / f"{DRY_CELL[0]}__{DRY_CELL[1]}__16x16.json").write_text(
+        json.dumps(res, indent=1))
+    seconds = time.perf_counter() - t0
+    print(f"dryrun 14b {json.dumps(dict(res, card=smi, seconds=seconds))}",
+          flush=True)
+    print(report.render(report.load_rows(out, "16x16"),
+                        capacity_gb=hw.hbm_bytes() / 1e9, trace_s=True),
+          flush=True)
+    if res.get("status") != "OK":
+        fail(f"14b: {DRY_CELL} ended {res.get('status')}")
+    if seconds > DRY_BUDGET_S:
+        fail(f"14b: {DRY_CELL} took {seconds:.1f} s (> {DRY_BUDGET_S})")
+    return seconds
+
+
+def dryrun_path(args, counters, smi):
+    """Phase 14: the dry run's count held to the card (14a) and one
+    production cell traced on its host (14b); no queue kernel may
+    launch."""
+    from repro_torch import dist
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import traffic
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+
+    def mesh_run(devices):
+        return launch_mesh.fake_mesh(dist.abstract_mesh(MESH_SHAPE,
+                                                        MESH_AXES), devices)
+
+    times = {}
+    dry_train(args, train, tf, dist, traffic, smi, mesh_run)
+    times["14a train"] = time.perf_counter() - t0
+    dry_serve(args, serve, tf, traffic, smi)
+    times["14a serve"] = time.perf_counter() - t0 - times["14a train"]
+    times["14b"] = dry_cell(smi)
+    launches = {k: w.launches for k, w in counters.items()}
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s, by part "
+          f"{json.dumps(times)}, queue kernel launches "
+          f"{json.dumps(launches)}", flush=True)
+    if any(launches.values()):
+        fail(f"the dry-run path launched a queue kernel: {launches}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4065,6 +4335,9 @@ def main() -> None:
 
     # 13. the model stack on a mesh of positions on the card
     mesh_path(args, counters, smi, phase11["full"])
+
+    # 14. the dry run: its count held to the card, a production cell
+    dryrun_path(args, counters, smi)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []

@@ -183,9 +183,29 @@ class _Ctx(threading.local):
         self.mesh: Optional[Mesh] = None
         self.rules: Dict[str, Tuple[str, ...]] = RULES_2D
         self.row: Optional["Row"] = None
+        self.link: Optional[str] = None
 
 
 _CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def link_kind(kind: str):
+    """Name the collective that the copies between devices in the extent
+    make ("all-reduce", "all-gather", "reduce-scatter"), for a counter
+    of the link bytes (``roofline.trace_stats``).  An enclosing name
+    wins.  It changes no value."""
+    prev = _CTX.link
+    if prev is None:
+        _CTX.link = kind
+    try:
+        yield
+    finally:
+        _CTX.link = prev
+
+
+def current_link_kind() -> Optional[str]:
+    return _CTX.link
 
 
 def current_mesh() -> Optional[Mesh]:
@@ -417,25 +437,27 @@ class Sharded:
         device = self.mesh.devices[0] if device is None else device
         out = torch.empty(tuple(s.stop - s.start for s in box),
                           dtype=self.dtype, device=device)
-        for p in self.owners():
-            blk = self.block(p)
-            ov = _overlap(blk, box)
-            if ov is not None:
-                out[_shift(ov, box)] = self.shards[p][_shift(ov, blk)].to(
-                    device)
+        with link_kind("all-gather"):
+            for p in self.owners():
+                blk = self.block(p)
+                ov = _overlap(blk, box)
+                if ov is not None:
+                    out[_shift(ov, box)] = self.shards[p][
+                        _shift(ov, blk)].to(device)
         return out
 
     def write(self, box, value: torch.Tensor) -> None:
         """Write ``value`` (the shape of ``box``) into every position whose
         block overlaps ``box``."""
         box = tuple(box)
-        for p in range(self.mesh.size):
-            blk = self.block(p)
-            ov = _overlap(blk, box)
-            if ov is not None:
-                dst = self.shards[p]
-                dst[_shift(ov, blk)] = value[_shift(ov, box)].to(
-                    dst.device, dst.dtype)
+        with link_kind("reduce-scatter"):
+            for p in range(self.mesh.size):
+                blk = self.block(p)
+                ov = _overlap(blk, box)
+                if ov is not None:
+                    dst = self.shards[p]
+                    dst[_shift(ov, blk)] = value[_shift(ov, box)].to(
+                        dst.device, dst.dtype)
 
     def __repr__(self) -> str:
         return (f"Sharded({tuple(self.shape)}, {self.dtype}, "
@@ -544,13 +566,14 @@ def _check(xs, mesh: Mesh):
 def _reduce(xs, mesh: Mesh, axis, op):
     _check(xs, mesh)
     out = [None] * mesh.size
-    for g in mesh.groups(axis):
-        dev = xs[g[0]].device
-        acc = xs[g[0]]
-        for p in g[1:]:
-            acc = op(acc, xs[p].to(dev))
-        for p in g:
-            out[p] = acc.to(mesh.devices[p], copy=True)
+    with link_kind("all-reduce"):
+        for g in mesh.groups(axis):
+            dev = xs[g[0]].device
+            acc = xs[g[0]]
+            for p in g[1:]:
+                acc = op(acc, xs[p].to(dev))
+            for p in g:
+                out[p] = acc.to(mesh.devices[p], copy=True)
     return out
 
 
@@ -573,18 +596,20 @@ def all_gather(xs, mesh: Mesh, axis, dim: int = 0):
     on every position."""
     _check(xs, mesh)
     out = [None] * mesh.size
-    for g in mesh.groups(axis):
-        dev = xs[g[0]].device
-        cat = torch.cat([xs[p].to(dev) for p in g], dim)
-        for p in g:
-            out[p] = cat.to(mesh.devices[p], copy=True)
+    with link_kind("all-gather"):
+        for g in mesh.groups(axis):
+            dev = xs[g[0]].device
+            cat = torch.cat([xs[p].to(dev) for p in g], dim)
+            for p in g:
+                out[p] = cat.to(mesh.devices[p], copy=True)
     return out
 
 
 def reduce_scatter(xs, mesh: Mesh, axis, dim: int = 0):
     """Each group's sum (position order), split along ``dim``: the k-th
     position of a group takes the k-th block."""
-    summed = psum(xs, mesh, axis)
+    with link_kind("reduce-scatter"):
+        summed = psum(xs, mesh, axis)
     out = [None] * mesh.size
     for g in mesh.groups(axis):
         for k, p in enumerate(g):
@@ -599,5 +624,5 @@ __all__ = ["RULES_2D", "RULES_3D", "sp_rules", "P", "Mesh", "make_mesh",
            "pmax", "pmean", "all_gather", "reduce_scatter", "rows", "Row",
            "row_scope", "current_row", "batch_axes", "tree_map2",
            "tree_map_with_path", "held_bytes", "axes_of", "full_box",
-           "zeros"]
+           "zeros", "link_kind", "current_link_kind"]
 

@@ -13,7 +13,10 @@ repro_torch.examples.<name>``, on the card by default):
 * ``train_lm`` — a ~100M LM trained on the synthetic stream, each step's
   group drawn from the priority sampler, with checkpoints;
 * ``dev_check_models`` — every arch's reduced config through the loss,
-  its gradient, prefill and decode.
+  its gradient, prefill and decode;
+* ``dryrun_sweep`` — every (arch × shape × mesh) cell of the dry run
+  (``launch.dryrun``), a subprocess each (it traces, so it runs no
+  ``main(device=...)``).
 
 Each module's ``main(device=...)`` prints the lines of the JAX package's
 script of the same name and returns its numbers as a dict.

@@ -21,8 +21,14 @@ positions' partial softmax statistics, the distributed flash decode the
 reference's ``cache_leaf_spec`` asks of GSPMD); every other cache leaf
 (SSM and xLSTM states, a cache whose S dim does not split) is gathered
 for the step and written back to its shards.  The logits come back whole
-on the mesh's first device.  The AOT lowering for the dry run
-(``lower_serve_step``, ``lower_prefill_step``) is not ported here.
+on the mesh's first device.  The chunked prefill on a mesh
+(``make_chunked_prefill_step(cfg, mesh=)``) gathers each row's cache
+rows whole onto the row's device, runs ``prefill_chunked`` there and
+writes them back: its chunks append at any offset, which the sequence
+blocks of ``SeqBlocks`` do not take.
+
+``lower_serve_step`` and ``lower_prefill_step`` build a step and its
+placed fake arguments for the dry run (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ import torch
 
 from repro_torch.dist.sharding import (Mesh, NamedSharding, P, Sharded,
                                        batch_axes, full_box, place,
-                                       row_scope, rows, tree_map_with_path,
-                                       use_mesh)
+                                       row_scope, rows, tree_map2,
+                                       tree_map_with_path, use_mesh)
+from repro_torch.launch.mesh import Lowered, fake_mode, placed, positions
 from repro_torch.launch.train import param_spec, sanitize_spec, zero1_spec
 from repro_torch.models import transformer as tf
 from repro_torch.models.arch_config import ArchConfig
@@ -111,11 +118,16 @@ def make_prefill_step(cfg: ArchConfig, mesh: Mesh = None):
     return prefill_step
 
 
-def make_chunked_prefill_step(cfg: ArchConfig, chunk_len: int = 2048):
+def make_chunked_prefill_step(cfg: ArchConfig, chunk_len: int = 2048,
+                              mesh: Mesh = None):
     """The prefill step over chunks of ``chunk_len`` tokens (the
-    reference's ``lower_prefill_step(..., chunked=True)``), one
-    device."""
-    def prefill_step(params, caches, tokens):
+    reference's ``lower_prefill_step(..., chunked=True)``), on one
+    device or on a mesh.  As there, it takes no frontend extras: any
+    given are ignored."""
+    if mesh is not None:
+        return _mesh_step(cfg, mesh, "chunked", chunk_len)
+
+    def prefill_step(params, caches, tokens, **_):
         return tf.prefill_chunked(cfg, params, tokens, caches,
                                   chunk_len=chunk_len)
     return prefill_step
@@ -180,7 +192,7 @@ def _row_caches(caches, lo: int, hi: int, device, kind: str):
         return box[:1] + (slice(lo, hi),) + box[2:]
 
     def one(x, kv: bool):
-        seq = _seq_view(x, lo, hi) if kv else None
+        seq = _seq_view(x, lo, hi) if kv and kind != "chunked" else None
         if seq is not None:
             reps.extend(seq[1])
             return seq[0]
@@ -197,7 +209,7 @@ def _row_caches(caches, lo: int, hi: int, device, kind: str):
     return view, back, reps
 
 
-def _mesh_step(cfg: ArchConfig, mesh: Mesh, kind: str):
+def _mesh_step(cfg: ArchConfig, mesh: Mesh, kind: str, chunk_len=None):
     data_rows = rows(mesh)
     home = mesh.devices[0]
     if not batch_axes(mesh):
@@ -220,6 +232,9 @@ def _mesh_step(cfg: ArchConfig, mesh: Mesh, kind: str):
                     out, view = tf.decode_step(
                         cfg, full, toks, view,
                         _batch_part(pos, lo, hi, row.device))
+                elif kind == "chunked":
+                    out, view = tf.prefill_chunked(cfg, full, toks, view,
+                                                   chunk_len=chunk_len)
                 else:
                     out, view = tf.prefill(
                         cfg, full, toks, view,
@@ -245,6 +260,91 @@ def _mesh_step(cfg: ArchConfig, mesh: Mesh, kind: str):
             return step(params, caches, token, pos)
         return serve_step
 
+    if kind == "chunked":
+        def chunked_step(params, caches, tokens, **_):
+            return step(params, caches, tokens)
+        return chunked_step
+
     def prefill_step(params, caches, tokens, **extras):
         return step(params, caches, tokens, **extras)
     return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# the lowerings for the dry run
+# ---------------------------------------------------------------------------
+
+def _token_sharding(mesh: Mesh, shape) -> NamedSharding:
+    bax = ("pod", "data") if "pod" in mesh.axis_names else "data"
+    return NamedSharding(mesh, sanitize_spec(P(bax, *([None] * (len(shape)
+                                                                - 1))),
+                                             shape, mesh))
+
+
+def _placed_tree(mesh, device, shapes, shardings):
+    if mesh is None:
+        return tf.tree_map(lambda s: placed(None, device, s.shape, s.dtype),
+                           shapes)
+    return tree_map2(lambda s, n: placed(mesh, device, s.shape, s.dtype, n),
+                     shapes, shardings)
+
+
+def lower_serve_step(cfg: ArchConfig, mesh: Mesh, *, batch: int,
+                     seq_len: int, specs, device="cpu:0"):
+    """One decode step and its placed fake arguments, for the dry run:
+    the parameters by ``params_shardings``, the caches (``seq_len``
+    long, with an enc-dec arch's cross K/V) by ``cache_shardings``, the
+    token and position over the batch axes where they divide.  ``mesh``
+    None is the one-device step on ``device``.  Returns a
+    ``launch.mesh.Lowered``."""
+    params_shape = tf.init_params(cfg, None, "meta")
+    caches_shape = tf.init_decode_caches(cfg, batch, seq_len, device="meta")
+    if cfg.enc_dec:
+        caches_shape = {**caches_shape, "xkv": _xkv_builder(cfg, batch)()}
+    mode = fake_mode()
+    with mode:
+        p_sh = c_sh = t_sh = pos_sh = None
+        if mesh is not None:
+            p_sh = params_shardings(cfg, mesh, params_shape)
+            c_sh = cache_shardings(cfg, mesh, caches_shape)
+            t_sh = _token_sharding(mesh, specs["token"][0])
+            pos_sh = _token_sharding(mesh, specs["pos"][0])
+        params = _placed_tree(mesh, device, params_shape, p_sh)
+        caches = _placed_tree(mesh, device, caches_shape, c_sh)
+        token = placed(mesh, device, *specs["token"], t_sh)
+        pos = placed(mesh, device, *specs["pos"], pos_sh)
+    return Lowered("decode", make_decode_step(cfg, mesh),
+                   (params, caches, token, pos), {}, mesh,
+                   positions(mesh, device), mode)
+
+
+def lower_prefill_step(cfg: ArchConfig, mesh: Mesh, *, batch: int,
+                       seq_len: int, specs, chunked: bool = False,
+                       chunk_len: int = 2048, device="cpu:0"):
+    """The prefill step (over chunks of ``chunk_len`` where ``chunked``)
+    and its placed fake arguments, for the dry run: caches sized to the
+    prompt (``seq_len`` plus a ViT front end's tokens, as the reference
+    sizes them), the tokens and frontend extras over the batch axes.
+    ``mesh`` None is the one-device step on ``device``.  Returns a
+    ``launch.mesh.Lowered``."""
+    params_shape = tf.init_params(cfg, None, "meta")
+    cache_len = seq_len + (cfg.frontend_tokens if cfg.frontend == "vit"
+                           else 0)
+    caches_shape = tf.init_decode_caches(cfg, batch, cache_len,
+                                         device="meta")
+    mode = fake_mode()
+    with mode:
+        p_sh = c_sh = None
+        if mesh is not None:
+            p_sh = params_shardings(cfg, mesh, params_shape)
+            c_sh = cache_shardings(cfg, mesh, caches_shape)
+        params = _placed_tree(mesh, device, params_shape, p_sh)
+        caches = _placed_tree(mesh, device, caches_shape, c_sh)
+        inputs = {k: placed(mesh, device, s, dt,
+                            None if mesh is None else _token_sharding(mesh, s))
+                  for k, (s, dt) in specs.items()}
+    tokens = inputs.pop("tokens")
+    step = (make_chunked_prefill_step(cfg, chunk_len, mesh) if chunked
+            else make_prefill_step(cfg, mesh))
+    return Lowered("prefill", step, (params, caches, tokens), inputs, mesh,
+                   positions(mesh, device), mode)

@@ -45,8 +45,10 @@ GSPMD derives for the reference is done by hand:
   every position that holds it, parameters included.
 
 Dense tensor parallelism over ``model`` is not written by hand: a row
-computes dense blocks on its gathered weights.  The AOT lowering for the
-dry run (``lower_train_step``) is not ported here.
+computes dense blocks on its gathered weights.
+
+``lower_train_step`` builds the step and its placed fake arguments for
+the dry run (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -56,10 +58,12 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.dist.sharding import (Mesh, NamedSharding, P, Sharded,
-                                       axes_of, batch_axes, full_box,
-                                       row_scope, rows, tree_map2,
+from repro_torch.dist.sharding import (RULES_2D, RULES_3D, Mesh,
+                                       NamedSharding, P, Sharded, axes_of,
+                                       batch_axes, full_box, link_kind,
+                                       row_scope, rows, sp_rules, tree_map2,
                                        tree_map_with_path, use_mesh, zeros)
+from repro_torch.launch.mesh import Lowered, fake_mode, placed, positions
 from repro_torch.models import transformer as tf
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.optim import (AdamW8State, AdamWState, adamw8_init,
@@ -364,8 +368,9 @@ def _pieces(b: int, n_micro: int, n_rows: int):
 def scatter_add(acc: Sharded, g: torch.Tensor) -> None:
     """One row's contribution to the ZeRO-1 reduce-scatter: each
     position adds its block of ``g``, as float32, into its shard."""
-    for p, s in enumerate(acc.shards):
-        s.add_(g[acc.block(p)].float().to(s.device))
+    with link_kind("reduce-scatter"):
+        for p, s in enumerate(acc.shards):
+            s.add_(g[acc.block(p)].float().to(s.device))
 
 
 def sharded_grad_norm(grads, device) -> torch.Tensor:
@@ -373,11 +378,12 @@ def sharded_grad_norm(grads, device) -> torch.Tensor:
     tree, each distinct block counted once, the leaves in the reference's
     order, on ``device``."""
     total = torch.zeros((), dtype=torch.float32, device=device)
-    for _, g in sorted_paths(grads):
-        leaf = torch.zeros((), dtype=torch.float32, device=device)
-        for p in g.owners():
-            leaf = leaf + torch.sum(torch.square(g.shards[p])).to(device)
-        total = total + leaf
+    with link_kind("all-reduce"):
+        for _, g in sorted_paths(grads):
+            leaf = torch.zeros((), dtype=torch.float32, device=device)
+            for p in g.owners():
+                leaf = leaf + torch.sum(torch.square(g.shards[p])).to(device)
+            total = total + leaf
     return torch.sqrt(total + 1e-20)
 
 
@@ -437,6 +443,16 @@ def _sharded_update(params, grads, opt, *, tcfg: TrainConfig, lr, gnorm,
                 dst.write(box, val)
 
 
+class _Shape:
+    """A leaf's shape alone, for the layout functions (which read
+    ``.shape``): the step makes no tensor to stand for one."""
+
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = shape
+
+
 def _mesh_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh: Mesh):
     data_rows = rows(mesh)
     home = mesh.devices[0]
@@ -456,8 +472,7 @@ def _mesh_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh: Mesh):
             mb // piece).float()) / n
         w_aux = 1.0 / (n * (mb // piece))
 
-        shapes = tf.tree_map(lambda s: torch.empty(s.shape, device="meta"),
-                             state.params)
+        shapes = tf.tree_map(lambda s: _Shape(s.shape), state.params)
         acc = tree_map2(lambda s, sh: zeros(s.shape, torch.float32, sh),
                         shapes, grad_shardings(cfg, mesh, shapes))
         acc_leaves = tf.tree_leaves(acc)
@@ -492,3 +507,44 @@ def _mesh_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh: Mesh):
 
     return train_step
 
+
+
+# ---------------------------------------------------------------------------
+# the lowering for the dry run
+# ---------------------------------------------------------------------------
+
+def lower_train_step(cfg: ArchConfig, tcfg: TrainConfig,
+                     mesh: Optional[Mesh], specs, *, device="cpu:0"):
+    """The train step and its placed fake arguments, for the dry run
+    (nothing allocated, nothing traced yet): the state by
+    ``state_shardings``, the batch by ``batch_specs`` (``specs``: name ->
+    (shape, dtype), as ``configs.shapes.input_specs`` gives them), under
+    ``RULES_2D`` / ``RULES_3D`` or their ``sp_rules``, as the reference
+    lowers it.  The port's layouts do not read those rules (placement
+    owns layout, ``dist.sharding.shard`` is an identity), so
+    ``sequence_parallel`` traces the same program.  ``mesh`` None is
+    the one-device step on ``device``.  Returns a
+    ``launch.mesh.Lowered``."""
+    rules = None
+    if mesh is not None:
+        base = RULES_3D if "pod" in mesh.axis_names else RULES_2D
+        rules = sp_rules(base) if tcfg.sequence_parallel else base
+    shape = init_train_state(cfg, None, tcfg, device="meta")
+    mode = fake_mode()
+    with mode:
+        if mesh is None:
+            state = tf.tree_map(lambda s: placed(None, device, s.shape,
+                                                 s.dtype), shape)
+            batch = {k: placed(None, device, s, dt)
+                     for k, (s, dt) in specs.items()}
+        else:
+            with use_mesh(mesh, rules):
+                st_sh = state_shardings(cfg, tcfg, mesh, shape)
+                b_sh = batch_specs(cfg, mesh)
+            state = tree_map2(lambda s, n: placed(mesh, device, s.shape,
+                                                  s.dtype, n), shape, st_sh)
+            batch = {k: placed(mesh, device, s, dt, b_sh[k])
+                     for k, (s, dt) in specs.items()}
+    return Lowered("train", make_train_step(cfg, tcfg, mesh),
+                   (state, batch), {}, mesh, positions(mesh, device), mode,
+                   rules)

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist.sharding import link_kind
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.layers import dense_init
 
@@ -140,7 +141,8 @@ def _decode_blocks(cache: KVCache, q, k, v, idx, window, softcap):
         m = s.amax(-1)                                   # [B, G, Hg, 1]
         p = torch.exp(s - m[..., None])
         o = torch.einsum("bghqk,bkgd->bghqd", p, pv.float())
-        stats.append(tuple(t.to(q.device) for t in (m, p.sum(-1), o)))
+        with link_kind("all-reduce"):
+            stats.append(tuple(t.to(q.device) for t in (m, p.sum(-1), o)))
     m_all = stats[0][0]
     for m, _, _ in stats[1:]:
         m_all = torch.maximum(m_all, m)

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import (Mesh, current_mesh, current_row,
-                                       pmean, rows, spec)
+                                       link_kind, pmean, rows, spec)
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.layers import truncated_normal
 
@@ -150,8 +150,9 @@ def _ep_row(params, cfg: ArchConfig, x, devices, n_local: int):
         for name in ("wi_gate", "wi_up", "wo"):
             local[name] = params[name][lo:lo + n_local].to(dev)
         y, a = _moe_local(local, cfg, x.to(dev), experts_slice=(lo, n_local))
-        ys.append(y.to(x.device))
-        aux = a.to(x.device) if aux is None else aux
+        with link_kind("all-reduce"):
+            ys.append(y.to(x.device))
+            aux = a.to(x.device) if aux is None else aux
     y = ys[0]
     for part in ys[1:]:
         y = y + part

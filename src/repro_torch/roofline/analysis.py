@@ -2,9 +2,11 @@
 ``roofline/analysis.py``).
 
 The reference also parses XLA's optimized HLO for collective payloads
-(``collective_bytes``); the port has no HLO.  The mesh queue's one
-cross-position transfer is ``core.distributed._all_gather``, and
-:mod:`repro_torch.roofline.traffic` counts its bytes.
+(``collective_bytes``); the port has no HLO.  In its place
+:mod:`repro_torch.roofline.trace_stats` counts the bytes of every copy
+between devices of a traced step, by collective kind (the dry run), and
+:mod:`repro_torch.roofline.traffic` counts the mesh queue's one
+cross-position transfer, ``core.distributed._all_gather``.
 """
 
 from __future__ import annotations

@@ -15,11 +15,18 @@ Terms:
 The names are the reference roof's (``ICI_BW`` is the card-to-card link
 here).  HBM capacity is read from the card at call time
 (:func:`hbm_bytes`), not typed in.
+
+``DCN_BW`` is the rate between nodes: one 400 Gb/s ConnectX-7 port a
+GPU, 50 GB/s, from NVIDIA's DGX H100 data sheet.  A DGX H100 node holds
+eight cards on NVLink, so a 16 x 16 mesh spans 32 nodes: its link term
+at ``ICI_BW`` is optimistic, and still a lower bound.  The dry run
+weighs a 2 x 16 x 16 mesh's link bytes at ``DCN_BW``.
 """
 
 PEAK_FLOPS = 989e12        # dense BF16 FLOP/s per card
 HBM_BW = 3.35e12           # HBM3 bytes/s per card
 ICI_BW = 450e9             # NVLink bytes/s per card, one direction
+DCN_BW = 50e9              # bytes/s per card between nodes (400 Gb/s)
 
 
 def hbm_bytes(device=0) -> int:
