@@ -37,6 +37,7 @@ here by hand:
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import threading
 from collections import OrderedDict
@@ -112,6 +113,10 @@ class Mesh:
                 raise ValueError(f"{len(devices)} devices for a mesh of "
                                  f"{self.size} positions")
         self._devices = devices
+        # pure functions of the mesh, worked out once (``groups``,
+        # ``NamedSharding.layout``)
+        self._groups: Dict[Tuple[str, ...], List[List[int]]] = {}
+        self._layouts: Dict[tuple, "Layout"] = {}
 
     @property
     def empty(self) -> bool:
@@ -139,15 +144,19 @@ class Mesh:
         """The positions that differ only along ``axis`` (a name or a
         tuple of names), each group in position order."""
         names = axes_of(axis)
-        for a in names:
-            if a not in self.shape:
-                raise ValueError(f"no axis {a!r} in mesh {self.axis_names}")
-        out: Dict[tuple, List[int]] = {}
-        for p in range(self.size):
-            c = self.coords(p)
-            key = tuple(c[a] for a in self.axis_names if a not in names)
-            out.setdefault(key, []).append(p)
-        return list(out.values())
+        got = self._groups.get(names)
+        if got is None:
+            for a in names:
+                if a not in self.shape:
+                    raise ValueError(f"no axis {a!r} in mesh "
+                                     f"{self.axis_names}")
+            out: Dict[tuple, List[int]] = {}
+            for p in range(self.size):
+                c = self.coords(p)
+                key = tuple(c[a] for a in self.axis_names if a not in names)
+                out.setdefault(key, []).append(p)
+            got = self._groups[names] = list(out.values())
+        return [list(g) for g in got]
 
     def __repr__(self) -> str:
         kind = "abstract" if self.abstract else f"on {self._devices}"
@@ -371,8 +380,95 @@ class NamedSharding:
     def shard_shape(self, shape) -> Tuple[int, ...]:
         return tuple(s.stop - s.start for s in self.block(shape, 0))
 
+    def layout(self, shape) -> "Layout":
+        """Every position's block of a global ``shape``, worked out once
+        per (mesh, spec, shape) and kept on the mesh."""
+        key = (tuple(self.spec), tuple(shape))
+        got = self.mesh._layouts.get(key)
+        if got is None:
+            got = self.mesh._layouts[key] = Layout(self, tuple(shape))
+        return got
+
     def __repr__(self) -> str:
         return f"NamedSharding({dict(self.mesh.shape)}, {self.spec})"
+
+
+class Layout:
+    """Where each position's block of one global shape lies under one
+    spec: ``blocks[p]`` (a box of slices), ``owners`` (one position per
+    distinct block, the first that holds it), and the blocks a box
+    overlaps, each found once per box (``reads`` over the owners,
+    ``writes`` over every position) from the block indices the box
+    spans along each dim.  The spec's blocks must tile the shape."""
+
+    def __init__(self, sharding: NamedSharding, shape: Tuple[int, ...]):
+        n = sharding.mesh.size
+        self.blocks = [sharding.block(shape, p) for p in range(n)]
+        index = [sharding.block_index(shape, p) for p in range(n)]
+        self._size = [s_.stop - s_.start for s_ in self.blocks[0]] if n \
+            else []
+        # block index -> the positions that hold it, in position order
+        self._holders: Dict[tuple, List[int]] = {}
+        for p in range(n):
+            self._holders.setdefault(tuple(i for i, _ in index[p]),
+                                     []).append(p)
+        self.owners = sorted(h[0] for h in self._holders.values())
+        self._boxes: Dict[tuple, list] = {}
+        self._regions: Dict[bool, list] = {}
+
+    def _overlaps(self, box, owners_only: bool):
+        """(position, its part of ``box`` in the box's frame, the same
+        part in its block's frame) for each owner (or each position)
+        whose block overlaps ``box``, in position order."""
+        key = (owners_only, _key(box))
+        got = self._boxes.get(key)
+        if got is None:
+            spans = []
+            for sl, k in zip(box, self._size):
+                if sl.start >= sl.stop:
+                    spans = None
+                    break
+                spans.append(range(sl.start // k, (sl.stop - 1) // k + 1))
+            found = []
+            if spans is not None:
+                for idx in itertools.product(*spans):
+                    held = self._holders.get(idx, ())
+                    found.extend(held[:1] if owners_only else held)
+            got = []
+            for p in sorted(found):
+                blk = self.blocks[p]
+                ov = _overlap(blk, box)
+                got.append((p, _shift(ov, box), _shift(ov, blk)))
+            self._boxes[key] = got
+        return got
+
+    def reads(self, box):
+        return self._overlaps(box, True)
+
+    def writes(self, box):
+        return self._overlaps(box, False)
+
+    def regions(self, shape, whole_last: bool = False):
+        """The distinct boxes of the owners' blocks (with the last dim
+        whole where ``whole_last``), each with the first owner that holds
+        it, in owner order."""
+        got = self._regions.get(whole_last)
+        if got is None:
+            seen, got = set(), []
+            for p in self.owners:
+                box = self.blocks[p]
+                if whole_last and box:
+                    box = box[:-1] + (slice(0, shape[-1]),)
+                key = _key(box)
+                if key not in seen:
+                    seen.add(key)
+                    got.append((box, p))
+            self._regions[whole_last] = got
+        return got
+
+
+def _key(box) -> tuple:
+    return tuple((s.start, s.stop) for s in box)
 
 
 def _overlap(a: Tuple[slice, ...], b: Tuple[slice, ...]):
@@ -416,18 +512,16 @@ class Sharded:
     def numel(self) -> int:
         return math.prod(self.shape)
 
+    @property
+    def layout(self) -> Layout:
+        return self.sharding.layout(self.shape)
+
     def block(self, p: int) -> Tuple[slice, ...]:
-        return self.sharding.block(self.shape, p)
+        return self.layout.blocks[p]
 
     def owners(self) -> List[int]:
         """One position per distinct block (the first that holds it)."""
-        seen, out = set(), []
-        for p in range(self.mesh.size):
-            key = self.sharding.block_index(self.shape, p)
-            if key not in seen:
-                seen.add(key)
-                out.append(p)
-        return out
+        return list(self.layout.owners)
 
     def read(self, box=None, device=None) -> torch.Tensor:
         """The ``box`` of the global tensor (all of it by default) on
@@ -438,12 +532,8 @@ class Sharded:
         out = torch.empty(tuple(s.stop - s.start for s in box),
                           dtype=self.dtype, device=device)
         with link_kind("all-gather"):
-            for p in self.owners():
-                blk = self.block(p)
-                ov = _overlap(blk, box)
-                if ov is not None:
-                    out[_shift(ov, box)] = self.shards[p][
-                        _shift(ov, blk)].to(device)
+            for p, dst, src in self.layout.reads(box):
+                out[dst] = self.shards[p][src].to(device)
         return out
 
     def write(self, box, value: torch.Tensor) -> None:
@@ -451,13 +541,9 @@ class Sharded:
         block overlaps ``box``."""
         box = tuple(box)
         with link_kind("reduce-scatter"):
-            for p in range(self.mesh.size):
-                blk = self.block(p)
-                ov = _overlap(blk, box)
-                if ov is not None:
-                    dst = self.shards[p]
-                    dst[_shift(ov, blk)] = value[_shift(ov, box)].to(
-                        dst.device, dst.dtype)
+            for p, src, part in self.layout.writes(box):
+                dst = self.shards[p]
+                dst[part] = value[src].to(dst.device, dst.dtype)
 
     def __repr__(self) -> str:
         return (f"Sharded({tuple(self.shape)}, {self.dtype}, "
@@ -507,10 +593,11 @@ def place(x: torch.Tensor, sharding: NamedSharding) -> Sharded:
     block is cut there."""
     on = {}
     shards = []
+    blocks = sharding.layout(x.shape).blocks
     for p, dev in enumerate(sharding.mesh.devices):
         if dev not in on:
             on[dev] = x.to(dev)
-        shards.append(on[dev][sharding.block(x.shape, p)].clone(
+        shards.append(on[dev][blocks[p]].clone(
             memory_format=torch.contiguous_format))
     return Sharded(sharding, x.shape, shards)
 
@@ -618,7 +705,7 @@ def reduce_scatter(xs, mesh: Mesh, axis, dim: int = 0):
 
 
 __all__ = ["RULES_2D", "RULES_3D", "sp_rules", "P", "Mesh", "make_mesh",
-           "abstract_mesh", "NamedSharding", "Sharded", "use_mesh",
+           "abstract_mesh", "NamedSharding", "Layout", "Sharded", "use_mesh",
            "current_mesh", "current_rules", "spec", "shard",
            "shard_activation_sp", "device_put", "gather", "place", "psum",
            "pmax", "pmean", "all_gather", "reduce_scatter", "rows", "Row",

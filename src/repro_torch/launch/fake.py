@@ -76,6 +76,7 @@ class FakeDevices(TorchDispatchMode):
         self._returns_self = {}
         self._mutable = {}
         self._shapes = {}
+        self._noop = set()
 
     def _inplace(self, func) -> bool:
         r = self._returns_self.get(func)
@@ -99,9 +100,30 @@ class FakeDevices(TorchDispatchMode):
         shape, strides and dtype are kept per (op, operands' shapes,
         strides and dtypes, other arguments) and made again by
         ``empty_strided``, for ops that neither view nor write their
-        operands and whose first run made fresh storage."""
+        operands and whose first run made fresh storage.  An op that
+        writes its first operand in place and returns it (``add_``,
+        ``copy_``) is run once per such key: where that run left the
+        operand's shape, strides and storage as they were, a later call
+        with the same key returns the operand as it is (a meta kernel
+        only checks shapes)."""
         if not self._cacheable(func):
-            return func(*a, **k)
+            if not (self._inplace(func) and not func.is_view):
+                return func(*a, **k)
+            try:
+                key = (func, _key(a), _key(tuple(k.items())))
+                if key in self._noop:
+                    return a[0]
+            except TypeError:
+                return func(*a, **k)
+            t = a[0]
+            before = (t.shape, t.stride(), t.storage_offset(),
+                      t.untyped_storage().nbytes())
+            out = func(*a, **k)
+            if out is t and before == (t.shape, t.stride(),
+                                       t.storage_offset(),
+                                       t.untyped_storage().nbytes()):
+                self._noop.add(key)
+            return out
         try:
             key = (func, _key(a), _key(tuple(k.items())))
             spec = self._shapes.get(key)
@@ -138,6 +160,8 @@ class FakeDevices(TorchDispatchMode):
         out = self._fake(func, args, kwargs)
         if not (info[0] or info[2]):
             counter.observe(info, func, args, kwargs, out)
+        elif info[2]:
+            counter.view(out)
         return out
 
     def _fake(self, func, args, kwargs):

@@ -96,14 +96,15 @@ class Lowered:
     mode: Any
     rules: Optional[dict] = None
 
-    def trace(self, per_op: bool = False):
-        """Run the step once under ``trace_stats.TraceStats``; returns
+    def trace(self, per_op: bool = False, placed: bool = False):
+        """Run the step once under ``trace_stats.TraceStats`` (``placed``:
+        keeping the live bytes at each place of the loop nest); returns
         (its output, the counter)."""
         fused = self.mode if isinstance(self.mode, FakeDevices) else None
         with self.mode, (use_mesh(self.mesh, self.rules) if self.mesh
                          is not None else contextlib.nullcontext()):
             return count(self.step, *self.args, per_op=per_op, fake=fused,
-                         **self.kwargs)
+                         placed=placed, **self.kwargs)
 
 
 def placed(mesh: Optional[Mesh], device, shape, dtype, sharding=None):

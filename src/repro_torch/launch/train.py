@@ -66,6 +66,7 @@ from repro_torch.dist.sharding import (RULES_2D, RULES_3D, Mesh,
 from repro_torch.launch.mesh import Lowered, fake_mode, placed, positions
 from repro_torch.models import transformer as tf
 from repro_torch.models.arch_config import ArchConfig
+from repro_torch.models.trips import trips
 from repro_torch.optim import (AdamW8State, AdamWState, adamw8_init,
                                adamw8_update, adamw_init, adamw_update,
                                cosine_schedule)
@@ -314,7 +315,7 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in leaves]
         total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for i in range(n):
+        for i in trips("microbatches", n):
             loss, _ = tf.loss_fn(cfg, live, {k: v[i] for k, v in
                                              micro.items()})
             grads = torch.autograd.grad(loss, inputs, allow_unused=True)
@@ -368,9 +369,10 @@ def _pieces(b: int, n_micro: int, n_rows: int):
 def scatter_add(acc: Sharded, g: torch.Tensor) -> None:
     """One row's contribution to the ZeRO-1 reduce-scatter: each
     position adds its block of ``g``, as float32, into its shard."""
+    blocks = acc.layout.blocks
     with link_kind("reduce-scatter"):
         for p, s in enumerate(acc.shards):
-            s.add_(g[acc.block(p)].float().to(s.device))
+            s.add_(g[blocks[p]].float().to(s.device))
 
 
 def sharded_grad_norm(grads, device) -> torch.Tensor:
@@ -389,17 +391,11 @@ def sharded_grad_norm(grads, device) -> torch.Tensor:
 
 def _regions(x: Sharded, whole_last: bool = False):
     """The distinct blocks of ``x`` (with the last dim whole where
-    ``whole_last``), each with the device of a position that holds it."""
-    seen, out = set(), []
-    for p in x.owners():
-        box = x.block(p)
-        if whole_last and x.ndim:
-            box = box[:-1] + (slice(0, x.shape[-1]),)
-        key = tuple((s.start, s.stop) for s in box)
-        if key not in seen:
-            seen.add(key)
-            out.append((box, x.mesh.devices[p]))
-    return out
+    ``whole_last``), each with the device of a position that holds it
+    (``dist.sharding.Layout.regions``, found once per layout)."""
+    devices = x.mesh.devices
+    return [(box, devices[p]) for box, p in
+            x.layout.regions(x.shape, whole_last and x.ndim > 0)]
 
 
 def _sharded_update(params, grads, opt, *, tcfg: TrainConfig, lr, gnorm,
@@ -481,8 +477,8 @@ def _mesh_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh: Mesh):
             live = tf.tree_map(lambda s: s.read(device=row.device)
                                .requires_grad_(), state.params)
             inputs = tf.tree_leaves(live)
-            for lo in range(row.index * per_row, (row.index + 1) * per_row,
-                            piece):
+            for j in trips("pieces", per_row // piece):
+                lo = row.index * per_row + j * piece
                 c = lo // piece
                 part = {k: _batch_rows(v, lo, lo + piece, row.device)
                         for k, v in batch.items()}

@@ -33,6 +33,7 @@ import torch
 from repro_torch.dist.sharding import link_kind
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.models.trips import pad, trips
 
 _NEG = -1e30
 
@@ -206,7 +207,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
     k_pos_base = torch.arange(kv_chunk, device=dev)
 
     outs = []
-    for qi in range(nq):
+    for qi in trips("attention.q", nq):
         qc = qs[:, qi].float()
         q_pos = q_pos_base + qi * q_chunk
         m = torch.full((b, g, hg, q_chunk), _NEG, dtype=torch.float32,
@@ -214,7 +215,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
         l = torch.zeros((b, g, hg, q_chunk), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, g, hg, q_chunk, d), dtype=torch.float32,
                           device=dev)
-        for ki in range(nk):
+        for ki in trips("attention.kv", nk):
             vc = vs[:, ki]
             k_pos = k_pos_base + ki * kv_chunk
             s = torch.einsum("bqghd,bkgd->bghqk", qc, ks[:, ki].float())
@@ -236,7 +237,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]   # [B,G,Hg,qc,d]
         outs.append(out.permute(0, 3, 1, 2, 4))            # [B,qc,G,Hg,d]
-    return torch.cat(outs, dim=1).to(q.dtype)
+    return torch.cat(pad(outs, nq), dim=1).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

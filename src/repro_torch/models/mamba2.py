@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.layers import dense_init, scan_cumsum, softplus, \
     truncated_normal
+from repro_torch.models.trips import pad, trips
 
 
 class MambaCache(NamedTuple):
@@ -150,10 +151,10 @@ def mamba_apply(params, cfg: ArchConfig, u, *,
               else torch.zeros((b, h, n, p), dtype=torch.float32,
                                device=u.device))
     s_prevs = []
-    for ci in range(nc):
+    for ci in trips("ssd.chunks", nc):
         s_prevs.append(s_prev)
         s_prev = a_chunk[:, ci, :, None, None] * s_prev + s_chunk[:, ci]
-    s_prevs = torch.stack(s_prevs, dim=1)                     # [B,nc,H,N,P]
+    s_prevs = torch.stack(pad(s_prevs, nc), dim=1)            # [B,nc,H,N,P]
 
     y_inter = torch.einsum("bcin,bchnp->bcihp", cc_, s_prevs) \
         * torch.exp(cum)[..., None]

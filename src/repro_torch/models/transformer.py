@@ -47,6 +47,7 @@ from repro_torch.models.attention import attn_apply, attn_init, init_cache
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_apply,
                                        embed_init, mlp_init, norm_init,
                                        softmax_xent, unembed_apply)
+from repro_torch.models.trips import trips
 
 ATTN_KINDS = ("G", "L", "A")
 
@@ -290,7 +291,7 @@ def _apply_stack(cfg: ArchConfig, params, x, mode: str, caches=None,
     # autograd worker thread): it re-enters the forward's mesh context
     ctx = current_context()
     contexts = lambda: (contextlib.nullcontext(), entered(ctx))  # noqa: E731
-    for r in range(cfg.pattern_reps):
+    for r in trips("groups", cfg.pattern_reps):
         if remat:
             x, aux = checkpoint(_group, cfg, params, r, x, aux, mode, None,
                                 pos, enc_out, use_reentrant=False,
@@ -324,7 +325,7 @@ def encode(cfg: ArchConfig, params, frames):
     """Bidirectional encoder over stub frame embeddings [B, Se, D]."""
     x = frames.to(_dtype(cfg))
     x = x + _sinusoid(frames.shape[1], cfg.d_model, x.dtype, x.device)
-    for r in range(cfg.n_enc_layers):
+    for r in trips("encoder.layers", cfg.n_enc_layers):
         bp = _slice(params["enc_stack"], r)["p0"]
         h = apply_norm(bp["norm"], x, cfg.norm)
         y, _ = attn_apply(bp["attn"], cfg, h, causal=False)
@@ -455,7 +456,8 @@ def prefill_chunked(cfg: ArchConfig, params, tokens, caches, *,
     s = tokens.shape[1]
     if s % chunk_len:
         raise ValueError(f"prompt {s} is not a multiple of chunk {chunk_len}")
-    for off in range(0, s, chunk_len):
+    for i in trips("prefill.chunks", s // chunk_len):
+        off = i * chunk_len
         x = _embed(cfg, params, tokens[:, off:off + chunk_len])
         x, _ = _apply_stack(cfg, params, x, "chunk", caches=caches, pos=off)
     x = apply_norm(params["final_norm"], x, cfg.norm)

@@ -27,6 +27,7 @@ import torch
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.layers import dense_init, log_sigmoid, \
     scan_cumsum, truncated_normal
+from repro_torch.models.trips import pad, trips
 
 
 # ---------------------------------------------------------------------------
@@ -94,12 +95,12 @@ def mlstm_apply(params, cfg: ArchConfig, x, *, chunk: int = 256
     pos = torch.arange(q, device=dev)
 
     outs = []
-    for qi in range(nc):
+    for qi in trips("mlstm.q", nc):
         m = torch.full((b, h, q), float("-inf"), dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, h, q), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, h, q, p), dtype=torch.float32, device=dev)
-        for ki in range(nc):
+        for ki in trips("mlstm.k", nc):
             score = torch.einsum("bqhp,bkhp->bhqk", qc[:, qi], kc[:, ki])
             bias = rowc[:, qi, :, :, None] + colc[:, ki, :, None, :]
             causal = (pos[:, None] + qi * q) >= (pos[None, :] + ki * q)
@@ -115,7 +116,7 @@ def mlstm_apply(params, cfg: ArchConfig, x, *, chunk: int = 256
             m = m_new
         denom = torch.maximum(l.abs(), torch.exp(-m))
         outs.append((acc / denom[..., None]).transpose(1, 2))  # [B,q,H,p]
-    y = torch.cat(outs, dim=1).reshape(b, s, d).to(x.dtype)
+    y = torch.cat(pad(outs, nc), dim=1).reshape(b, s, d).to(x.dtype)
     y = y @ params["wo"]
 
     # final recurrent state (for prefill -> decode handoff)
@@ -223,10 +224,10 @@ def slstm_apply(params, cfg: ArchConfig, x, *,
         cache = init_slstm_cache(cfg, b, x.device)
     xg = x.float() @ params["w_x"].float()
     hs = []
-    for t in range(s):
+    for t in trips("slstm.steps", s):
         cache = _slstm_cell(params, cfg, xg[:, t], cache)
         hs.append(cache.h)
-    return torch.stack(hs, dim=1).to(x.dtype), cache
+    return torch.stack(pad(hs, s), dim=1).to(x.dtype), cache
 
 
 def slstm_decode(params, cfg: ArchConfig, x, cache: SLSTMCache

@@ -5,9 +5,14 @@ The reference compiles its step and reads FLOPs, bytes and collective
 payloads off the optimized HLO, recovering loop trip counts from the
 loop conditions.  The port has no HLO: eager PyTorch runs its loops in
 Python, so every layer, microbatch and attention chunk dispatches its
-ops as it runs.  ``TraceStats`` is a ``TorchDispatchMode`` that sees
-each of those aten ops (under ``FakeTensorMode`` in the dry run, so no
-memory is allocated and no arithmetic done) and charges it to devices:
+ops as it runs (the dry run caps the loops and fits the counts over
+their trip counts: ``launch.dryrun.TripCounts``).  ``TraceStats`` is a
+``TorchDispatchMode`` that sees each of those aten ops (under fake
+devices in the dry run, so no memory is allocated and no arithmetic
+done) and charges it to devices:
+
+Every count is an exact integer (a sum of Python ints), so that the dry
+run can fit counts across traces exactly (``launch.dryrun``).
 
 * ``flops``: the formulas of ``torch.utils.flop_counter`` (matmul,
   ``bmm``, ``addmm``, convolution, ``scaled_dot_product_*``), with the
@@ -39,6 +44,7 @@ positions share a device (the one card) it means per device.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import weakref
 from collections import defaultdict
 from typing import Dict
@@ -49,6 +55,7 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.dist import sharding
 from repro_torch.launch.fake import storage_of
+from repro_torch.models import trips
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -76,18 +83,18 @@ _ALLOC = {_aten.empty.memory_format, _aten.empty_strided.default,
 class DeviceStats:
     """One device's counts over a trace."""
 
-    flops: float = 0.0
-    hbm_bytes: float = 0.0
-    link: Dict[str, float] = dataclasses.field(
-        default_factory=lambda: {k: 0.0 for k in COLLECTIVES})
+    flops: int = 0
+    hbm_bytes: int = 0
+    link: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {k: 0 for k in COLLECTIVES})
     argument_bytes: int = 0
     live_bytes: int = 0
     peak_bytes: int = 0
     ops: int = 0
 
     @property
-    def link_bytes(self) -> float:
-        return float(sum(self.link.values()))
+    def link_bytes(self) -> int:
+        return sum(self.link.values())
 
 
 def _tensors(args):
@@ -120,15 +127,30 @@ class TraceStats(TorchDispatchMode):
     """Counts every aten op dispatched under it, per device (see the
     module docstring).  ``arguments`` is the tree of the step's inputs,
     whose storages count as live from the start; ``per_op`` also keeps
-    each device's table of (count, flops, bytes) by op."""
+    each device's table of (count, flops, bytes) by op.
 
-    def __init__(self, arguments=None, per_op: bool = False):
+    ``placed`` (under ``models.trips.capped``, for the dry run's fit)
+    also keeps, in ``places``, the most bytes live on each device right
+    after an allocation at each place of the loop nest
+    (``models.trips.point``): in the forward, the stretch and the ops
+    since; in the backward, the same for the autograd node being run,
+    which is named by the place of the forward op that made it.  Each
+    op's results' nodes are tagged with its place when the next op
+    begins (weak references: the tag keeps nothing alive)."""
+
+    def __init__(self, arguments=None, per_op: bool = False,
+                 placed: bool = False):
         super().__init__()
+        self.placed = placed
+        self.places: Dict[tuple, int] = {}
+        self._place = trips.ARGUMENTS
+        self._pending = None
+        self._serials = itertools.count()
         self.devices: Dict[torch.device, DeviceStats] = defaultdict(
             DeviceStats)
         self.per_op = per_op
         self.table: Dict[torch.device, Dict[str, list]] = defaultdict(
-            lambda: defaultdict(lambda: [0, 0.0, 0.0]))
+            lambda: defaultdict(lambda: [0, 0, 0]))
         self._held: Dict[int, weakref.ref] = {}
         self._args: set = set()
         self._infos: Dict[object, tuple] = {}
@@ -151,6 +173,10 @@ class TraceStats(TorchDispatchMode):
             d.peak_bytes = d.live_bytes
         self._held[key] = weakref.ref(
             st, lambda _, k=key, dev=device, n=n: self._free(k, dev, n))
+        if self.placed:
+            k = (self._place, device)
+            if d.live_bytes > self.places.get(k, -1):
+                self.places[k] = d.live_bytes
         return True
 
     def _free(self, key: int, device, n: int) -> None:
@@ -169,6 +195,37 @@ class TraceStats(TorchDispatchMode):
                 seen.add(id(st))
                 out[t.device] += st.nbytes()
         return out
+
+    # -- places in the loop nest -----------------------------------------
+    def enter(self, outs) -> None:
+        """Mark the op whose results are ``outs`` (a list of tensors) as
+        the one being counted: tag the previous op's results' autograd
+        nodes with its place and find this op's (``placed`` only)."""
+        pend = self._pending
+        if pend is not None:
+            for ref in pend[0]:
+                t = ref()
+                fn = None if t is None else t.grad_fn
+                if fn is not None:
+                    fn.metadata.setdefault("trip_place", pend[1])
+        node = torch._C._current_autograd_node()
+        if node is None:
+            serial = tag = None
+        else:
+            meta = node.metadata
+            serial = meta.get("trip_serial")
+            if serial is None:
+                serial = meta["trip_serial"] = next(self._serials)
+            tag = meta.get("trip_place") or node.name()
+        self._place = trips.point(serial, tag)
+        self._pending = ([weakref.ref(t) for t in outs], self._place)
+
+    def view(self, out) -> None:
+        """A view ran (counted as nothing): its node is placed as any
+        op's."""
+        if self.placed:
+            self.enter(list(_tensors(out if isinstance(out, (list, tuple))
+                                     else (out,))))
 
     # -- dispatch ---------------------------------------------------------
     def _info(self, func):
@@ -208,6 +265,8 @@ class TraceStats(TorchDispatchMode):
         out = func(*args, **kwargs)
         if not info[2]:
             self.observe(info, func, args, kwargs, out)
+        else:
+            self.view(out)
         return out
 
     def observe(self, info, func, args, kwargs, out) -> None:
@@ -219,13 +278,15 @@ class TraceStats(TorchDispatchMode):
                              else (out,)))
         if not outs:
             return
+        if self.placed:
+            self.enter(outs)
         dev = outs[0].device
         devices = self.devices
         d = devices[dev]
         d.ops += 1
-        flops = 0.0
+        flops = 0
         if flop is not None:
-            flops = float(flop(*args, **kwargs, out_val=out))
+            flops = int(flop(*args, **kwargs, out_val=out))
             d.flops += flops
         moved = 0
         if not alloc:
@@ -255,29 +316,18 @@ class TraceStats(TorchDispatchMode):
     def stats(self, device) -> DeviceStats:
         return self.devices[torch.device(device)]
 
-    def total_flops(self) -> float:
-        return float(sum(d.flops for d in self.devices.values()))
-
-
-def by_position(counter: TraceStats, devices, key) -> dict:
-    """min, max, the arg-max position and the sum of ``key(DeviceStats)``
-    over a mesh's positions (``devices``: each position's device; a
-    device shared by several positions counts once in the sum)."""
-    vals = [float(key(counter.stats(d))) for d in devices]
-    top = max(range(len(vals)), key=lambda p: vals[p])
-    total = sum(float(key(counter.stats(d))) for d in set(devices))
-    return {"min": min(vals), "max": vals[top], "argmax": top,
-            "sum": total}
+    def total_flops(self) -> int:
+        return sum(d.flops for d in self.devices.values())
 
 
 def count(step, *args, arguments=None, per_op: bool = False, fake=None,
-          **kwargs):
+          placed: bool = False, **kwargs):
     """Run ``step(*args, **kwargs)`` under a ``TraceStats``; returns
     (its output, the counter).  ``arguments`` defaults to the call's.
     ``fake``, the ``launch.fake.FakeDevices`` mode the call runs under,
     counts in its own dispatch (the same counts, one mode fewer a op)."""
     counter = TraceStats((args, kwargs) if arguments is None else arguments,
-                         per_op=per_op)
+                         per_op=per_op, placed=placed)
     if fake is None:
         with counter:
             out = step(*args, **kwargs)
@@ -290,5 +340,5 @@ def count(step, *args, arguments=None, per_op: bool = False, fake=None,
     return out, counter
 
 
-__all__ = ["COLLECTIVES", "DeviceStats", "TraceStats", "by_position",
-           "count", "tree_tensors"]
+__all__ = ["COLLECTIVES", "DeviceStats", "TraceStats", "count",
+           "tree_tensors"]
