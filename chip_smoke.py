@@ -216,15 +216,18 @@ Phases, each fatal on failure:
       (``max_memory_allocated`` above the step's start), no time under
       the compute term or the ``traffic`` bound; the time over the
       traced bytes' ``memory_s`` printed;
-   b. two production cells on the 16 x 16 mesh counted on the card's
-      host (fake devices, no card memory, fitted over trip counts), each
-      by ``python -m repro_torch.launch.dryrun`` in a process started
-      after phase 1 that runs beside the card's phases at the lowest
-      priority (``nice -n 19``): gemma-2b
-      ``decode_32k`` and qwen3-moe-235b-a22b ``train_4k`` (its traces in
-      four forked workers), each OK within its budget from its start,
-      the busiest position's peak, ``fits`` and the trace seconds
-      printed, then the report's rows;
+   b. three production cells on the 16 x 16 mesh counted on the card's
+      host (fake devices, no card memory, fitted over trip counts; a
+      train step's data rows but the first, the last and one more
+      predicted from those and held to the trace of every row at caps
+      of 1), each by ``python -m repro_torch.launch.dryrun`` in a process
+      started after phase 1 that runs beside the card's phases at the
+      lowest priority (``nice -n 19``): gemma-2b ``decode_32k``,
+      qwen3-moe-235b-a22b ``train_4k`` and xlstm-350m ``train_4k`` (four
+      loops fitted; the train cells' traces in four forked workers
+      each), each OK within its budget from its start, the busiest
+      position's peak, ``fits`` and the trace seconds printed, then the
+      report's rows;
    K1-K4 never launch in the phase.
 
 The last lines are a JSON record of the kernels and the run's status
@@ -3992,7 +3995,8 @@ ALLOC_BLOCK, ALLOC_LARGE = 512, 2 ** 20
 #: budget in seconds from its process's start (PERF.md §6: about twice
 #: its time on an 8-core CPU) and the processes its fit's traces run in
 DRY_CELLS = ((("gemma-2b", "decode_32k"), 300.0, 1),
-             (("qwen3-moe-235b-a22b", "train_4k"), 1200.0, 4))
+             (("qwen3-moe-235b-a22b", "train_4k"), 1200.0, 4),
+             (("xlstm-350m", "train_4k"), 900.0, 4))
 
 
 def tensors_of(tree):

@@ -45,6 +45,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.models.trips import each_copy
+
 # logical -> tuple of physical mesh axes (applied in order, outermost
 # first).  "seq" is unsharded by default; sp_rules() flips it to "model"
 # (sequence parallelism).
@@ -532,7 +534,7 @@ class Sharded:
         out = torch.empty(tuple(s.stop - s.start for s in box),
                           dtype=self.dtype, device=device)
         with link_kind("all-gather"):
-            for p, dst, src in self.layout.reads(box):
+            for p, dst, src in each_copy(self.layout.reads(box)):
                 out[dst] = self.shards[p][src].to(device)
         return out
 

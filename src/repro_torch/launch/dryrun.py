@@ -69,6 +69,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES, cell_is_skipped, input_specs
+from repro_torch.dist.sharding import batch_axes, rows
 from repro_torch.launch.fake import storage_of
 from repro_torch.launch.mesh import fake_mesh, make_production_mesh
 from repro_torch.launch.serve import lower_prefill_step, lower_serve_step
@@ -112,14 +113,17 @@ def cell_tokens(spec) -> int:
                          else 1)
 
 
-def _bytes_on(tree, device) -> int:
-    seen, n = set(), 0
+def _bytes_by_device(tree) -> dict:
+    """The bytes of ``tree``'s storages on each device, each storage
+    once."""
+    seen, out = set(), {}
     for t in tree_tensors(tree):
         st = storage_of(t)
-        if t.device == device and id(st) not in seen:
-            seen.add(id(st))
-            n += st.nbytes()
-    return n
+        key = (t.device, id(st))
+        if key not in seen:
+            seen.add(key)
+            out[t.device] = out.get(t.device, 0) + st.nbytes()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -141,20 +145,22 @@ class Counts:
     def __init__(self, table, argument, per_op=None, places=None):
         self.table, self.argument, self.per_op = table, argument, per_op
         #: (keys, values): each place of the loop nest and device (an
-        #: [n, 2] int64 array, sorted: place, the device's index in the
-        #: table) with the most bytes live there ([n] int64)
+        #: [n, 3] int64 array, sorted: place, its data row or -1, the
+        #: device's index in the table) with the most bytes live there
+        #: ([n] int64)
         self.places = places
 
     @classmethod
     def of_trace(cls, lowered, out, counter, per_op: bool = False):
         devs = list(dict.fromkeys(lowered.devices))
         held = counter.held_arguments(out)
+        output = _bytes_by_device(out)
         table = {}
         for d in devs:
             st = counter.stats(d)
             row = {"flops": st.flops, "hbm_bytes": st.hbm_bytes,
                    "peak_bytes": st.peak_bytes, "ops": st.ops,
-                   "output_bytes": _bytes_on(out, d),
+                   "output_bytes": output.get(d, 0),
                    "alias_bytes": held.get(d, 0)}
             row.update({f"link:{k}": v for k, v in st.link.items()})
             table[d] = row
@@ -164,11 +170,12 @@ class Counts:
         places = None
         if counter.placed:
             index = {d: i for i, d in enumerate(devs)}
-            kept = [(k[0], index[k[1]], v) for k, v in counter.places.items()
+            kept = [(k[0][0], -1 if k[0][1] is None else k[0][1],
+                     index[k[1]], v) for k, v in counter.places.items()
                     if k[1] in index]
-            arr = np.array(kept, dtype=np.int64).reshape(-1, 3)
-            arr = arr[np.lexsort((arr[:, 1], arr[:, 0]))]
-            places = (arr[:, :2].copy(), arr[:, 2].copy())
+            arr = np.array(kept, dtype=np.int64).reshape(-1, 4)
+            arr = arr[np.lexsort((arr[:, 2], arr[:, 1], arr[:, 0]))]
+            places = (arr[:, :3].copy(), arr[:, 3].copy())
         return cls(table, argument, ops, places)
 
     def in_order(self) -> tuple:
@@ -327,6 +334,90 @@ def _grid_weights(axes, grid, at) -> list:
     return out
 
 
+class RowPlan:
+    """The data rows of a mesh train step that the dry run runs, and the
+    row each other row is charged like (``TraceStats.predict_row``).
+
+    Every data row runs the same ops on the same shapes, on its own
+    positions, and exchanges the same blocks with the others: it reads
+    each parameter block from its first holder, adds its gradients'
+    blocks into every position's, sends its loss to the first position
+    (``launch.train``).  So a row not run counts as a row that ran, with
+    the two rows' positions swapped, where the swap changes nothing else
+    of the step.  It does not for:
+
+    * the row holding the first position (``home``: the loss, and the
+      first holder of every block replicated over the rows);
+    * rows of another pod: a block is replicated over ``pod``, so every
+      row of pod 1 reads it from pod 0, and a row of pod 0 reads its own
+      locally: each pod's rows are charged like one of the same pod;
+    * a row holding a device without an index (the last two positions of
+      2 x 16 x 16, ``launch.mesh.fake_devices``): the constants of every
+      row lie there, on the one of each of the row's devices' type
+      (``cpu`` or ``meta``), so where those are positions a row is
+      charged like one whose devices are of the same types;
+    * the last row: what it leaves (its last piece's batch, loss terms
+      and gradient leaf) stays live on its device through the update.
+
+    Those rows run, with one row of each pod and types (its last other
+    row); the others are predicted.  The dry run holds the prediction to
+    the trace of every row at caps of 1 (``TripCounts``)."""
+
+    def __init__(self, mesh):
+        data_rows = rows(mesh)
+        inner = batch_axes(mesh)[:-1]   # the axes a pod is named by
+        typed = any(d.index is None for d in mesh.devices)
+
+        def group(row):         # its pod, and its devices' types
+            c = mesh.coords(row.positions[0])
+            return (tuple(c[a] for a in inner),
+                    tuple(d.type for d in row.devices) if typed else ())
+
+        def special(row):
+            return 0 in row.positions or any(d.index is None
+                                             for d in row.devices)
+
+        like = {}
+        for r in reversed(data_rows):
+            if not special(r):
+                like.setdefault(group(r), r)
+        run = {r.index for r in data_rows if special(r)}
+        run |= {data_rows[-1].index} | {t.index for t in like.values()}
+        self.run = run
+        #: each predicted row -> (the row it is charged like, the device
+        #: map from that row's positions to its own and back)
+        self.like = {}
+        for r in data_rows:
+            if r.index not in run:
+                t = like[group(r)]
+                moved = dict(zip(t.devices, r.devices))
+                moved.update(zip(r.devices, t.devices))
+                self.like[r.index] = (t.index, moved)
+
+    @classmethod
+    def of(cls, lowered):
+        """The plan of ``lowered``'s step, or None where every row runs:
+        not a train step on a mesh of distinct devices, or no row to
+        predict."""
+        mesh = lowered.mesh
+        if lowered.kind != "train" or mesh is None or \
+                len(set(mesh.devices)) != mesh.size:
+            return None
+        plan = cls(mesh)
+        return plan if plan.like else None
+
+    def predict(self, counter) -> None:
+        """Charge ``counter`` (a trace of the rows run) with each row not
+        run."""
+        for r, (t, moved) in sorted(self.like.items()):
+            counter.predict_row(r, t, moved)
+
+    def record(self) -> dict:
+        return {"run": sorted(self.run),
+                "predicted": {str(r): t for r, (t, _) in
+                              sorted(self.like.items())}}
+
+
 class TripCounts:
     """A step's counts recovered from traces with its loops capped
     (``models.trips``): the counterpart of ``hlo_stats.analyze``
@@ -348,14 +439,31 @@ class TripCounts:
     trace exactly, every field and every place, and every fitted value
     must be a whole, non-negative number; else ``TripFailure``.
     Argument bytes are the placed arguments' (the same in every trace).
+
+    A mesh train step's traces run only the data rows of its
+    ``RowPlan`` and charge the others like them.  The first trace is
+    then made twice, of those rows and of every row (beside the others),
+    and the prediction must equal the trace of every row in every field
+    of every position and at every place; else ``TripFailure``.  A miss
+    never falls back to tracing every row.
     """
 
     def __init__(self, lowered, per_op: bool = False, workers: int = 1):
-        self.lowered, self.per_op = lowered, per_op
-        self.traces, self.seconds = 0, []
+        self.lowered, self.keep_ops = lowered, per_op
+        self.plan = RowPlan.of(lowered)
+        self.traces, self.seconds, self.corner_s = 0, [], {}
         with self._pool(workers) as pool:
-            self.variables = (pool.apply(_forked_loops) if pool
-                              else self._loops())
+            if self.plan is None:
+                ran = (pool.apply(_forked_corner, (False,)) if pool
+                       else self._corner(False))
+            elif pool is None:
+                every, ran = self._corner(False), self._corner(True)
+                self._hold_rows(ran, every)
+            else:
+                # every row's first trace runs beside the others
+                every = pool.apply_async(_forked_corner, (False,))
+                ran = pool.apply(_forked_corner, (True,))
+            self.variables = ran[1]
             full = tuple(n for _, n in self.variables)
             self.axes = [points(s) for s, _ in self.variables]
             grid = list(itertools.product(*self.axes))
@@ -364,6 +472,8 @@ class TripCounts:
             todo = [dict(zip(self.variables, g))
                     for g in grid + ([self.check_point] if full else [])]
             done = self._traces(todo, pool)
+            if self.plan is not None and pool is not None:
+                self._hold_rows(ran, every.get())
         samples = dict(zip(grid, done))
         corner = done[0]
         check = done[-1]
@@ -375,20 +485,8 @@ class TripCounts:
                               "the loop nest")
         self.counts = self._evaluate(full, corner)
         predicted = self._evaluate(self.check_point, corner, keep=True)
-        devs = list(corner.table)
-        position = {d: p for p, d in reversed(list(enumerate(
-            lowered.devices)))}
-        self.mismatches = [
-            {"field": f, "position": p, "fitted": predicted.table[d][f],
-             "traced": check.table[d][f]}
-            for p, d in enumerate(lowered.devices) for f in FIELDS
-            if predicted.table[d][f] != check.table[d][f]]
-        for i in np.flatnonzero(predicted.places[1] != check.places[1]):
-            self.mismatches.append({
-                "field": f"peak at place {int(keys[i, 0])}",
-                "position": position[devs[keys[i, 1]]],
-                "fitted": int(predicted.places[1][i]),
-                "traced": int(check.places[1][i])})
+        self.mismatches = _misses(predicted, check, lowered.devices,
+                                  "fitted")
         if self.mismatches:
             raise TripFailure(
                 f"{len(self.mismatches)} fitted values miss the check "
@@ -397,12 +495,38 @@ class TripCounts:
         for c in samples.values():
             c.places = None
 
-    def _loops(self) -> list:
-        """The loops to fit: the step traced once with every loop cut to
-        one iteration."""
-        with capped({}, lambda s, n: 1) as seen:
-            self.lowered.trace()
-        return sorted(v for v in seen if self._fitted(*v))
+    def _corner(self, predicted: bool):
+        """The step traced with every loop cut to one iteration, of the
+        plan's rows (the others predicted) or of every row: (its counts
+        in device order, the loops to fit, its seconds)."""
+        t0 = time.time()
+        with capped({}, lambda s, n: 1,
+                    rows=self.plan.run if predicted else None) as seen:
+            out, counter = self.lowered.trace(placed=self.plan is not None)
+            if predicted:
+                self.plan.predict(counter)
+            counts = Counts.of_trace(self.lowered, out, counter)
+        del out, counter
+        return (counts.in_order(),
+                sorted(v for v in seen if self._fitted(*v)),
+                round(time.time() - t0, 1))
+
+    def _hold_rows(self, ran, every) -> None:
+        """The first trace of the plan's rows, its other rows predicted,
+        against the same trace of every row: equal in every field of
+        every position and at every place, and meeting the same loops;
+        else ``TripFailure``."""
+        self.corner_s = {"rows_run": ran[2], "every_row": every[2]}
+        devs = list(dict.fromkeys(self.lowered.devices))
+        got, want = (Counts.by_index(c[0], devs) for c in (ran, every))
+        if ran[1] != every[1]:
+            raise TripFailure(f"the rows run meet the loops {ran[1]}, "
+                              f"every row {every[1]}")
+        misses = _misses(got, want, self.lowered.devices, "predicted")
+        if misses:
+            raise TripFailure(
+                f"{len(misses)} values of the rows predicted miss the "
+                f"trace of every row at caps of 1", misses)
 
     def _fitted(self, site: str, n: int) -> bool:
         return n > small(site) and (site in WHOLE_MODEL
@@ -442,16 +566,19 @@ class TripCounts:
         return [Counts.by_index(c, devs) for c, _ in got]
 
     def _trace(self, caps, variables=None):
-        """One trace at ``caps``: its ``Counts`` and the loops it met,
-        which must be ``variables`` (this object's by default: a forked
-        worker is handed them)."""
+        """One trace at ``caps`` (of the plan's rows, the others
+        predicted): its ``Counts`` and the loops it met, which must be
+        ``variables`` (this object's by default: a forked worker is
+        handed them)."""
         variables = self.variables if variables is None else variables
         t0 = time.time()
-        with capped(caps) as seen:
-            out, counter = self.lowered.trace(per_op=self.per_op,
+        with capped(caps, rows=self.plan and self.plan.run) as seen:
+            out, counter = self.lowered.trace(per_op=self.keep_ops,
                                               placed=True)
+            if self.plan is not None:
+                self.plan.predict(counter)
             counts = Counts.of_trace(self.lowered, out, counter,
-                                     self.per_op)
+                                     self.keep_ops)
         del out, counter
         self.traces += 1
         self.seconds.append(round(time.time() - t0, 1))
@@ -488,7 +615,7 @@ class TripCounts:
                               f"non-negative numbers: {bad[:SHOWN]}")
         devs = list(corner.table)
         peak = np.array([corner.argument[d] for d in devs], dtype=np.int64)
-        np.maximum.at(peak, keys[:, 1], vals)
+        np.maximum.at(peak, keys[:, 2], vals)
         for d, v in zip(devs, peak):
             table[d]["peak_bytes"] = int(v)
         return Counts(table, corner.argument,
@@ -516,7 +643,43 @@ class TripCounts:
                 "check": {"point": list(self.check_point),
                           "verdict": "exact" if self.variables else
                           "no loop to fit: one trace of the whole step"},
-                "traces": self.traces, "trace_s": self.seconds}
+                "traces": self.traces, "trace_s": self.seconds,
+                **({} if self.plan is None else {"rows": dict(
+                    self.plan.record(), check="exact",
+                    corner_s=self.corner_s)})}
+
+
+def _misses(got: Counts, want: Counts, devices, name: str) -> list:
+    """Each field of each position, and each place, where ``got`` (the
+    ``name``d values: fitted or predicted) differs from ``want`` (the
+    traced), as {"field", "position", name, "traced"}."""
+    devs = list(got.table)
+    position = {d: p for p, d in reversed(list(enumerate(devices)))}
+    out = [{"field": f, "position": p, name: got.table[d][f],
+            "traced": want.table[d][f]}
+           for p, d in enumerate(devices) for f in FIELDS
+           if got.table[d][f] != want.table[d][f]]
+    out += [{"field": "argument_bytes", "position": p, name: got.argument[d],
+             "traced": want.argument[d]}
+            for p, d in enumerate(devices)
+            if got.argument[d] != want.argument[d]]
+    (gk, gv), (wk, wv) = got.places, want.places
+    if not np.array_equal(gk, wk):
+        have = {tuple(k) for k in gk.tolist()}
+        need = {tuple(k) for k in wk.tolist()}
+        for k, a, b in sorted([(k, "present", "absent") for k in have - need]
+                              + [(k, "absent", "present")
+                                 for k in need - have])[:SHOWN]:
+            out.append({"field": f"place {k[0]} of row {k[1]}",
+                        "position": position[devs[k[2]]], name: a,
+                        "traced": b})
+        return out
+    for i in np.flatnonzero(gv != wv):
+        out.append({"field": f"peak at place {int(gk[i, 0])} of row "
+                             f"{int(gk[i, 1])}",
+                    "position": position[devs[gk[i, 2]]],
+                    name: int(gv[i]), "traced": int(wv[i])})
+    return out
 
 
 def _fit_rows(ints, den: int, rows, bad) -> np.ndarray:
@@ -540,8 +703,8 @@ def _fit_rows(ints, den: int, rows, bad) -> np.ndarray:
 _FORKED = None
 
 
-def _forked_loops():
-    return _FORKED._loops()
+def _forked_corner(predicted):
+    return _FORKED._corner(predicted)
 
 
 def _forked_trace(task):

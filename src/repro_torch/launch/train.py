@@ -66,7 +66,7 @@ from repro_torch.dist.sharding import (RULES_2D, RULES_3D, Mesh,
 from repro_torch.launch.mesh import Lowered, fake_mode, placed, positions
 from repro_torch.models import transformer as tf
 from repro_torch.models.arch_config import ArchConfig
-from repro_torch.models.trips import trips
+from repro_torch.models.trips import each_copy, each_row, trips
 from repro_torch.optim import (AdamW8State, AdamWState, adamw8_init,
                                adamw8_update, adamw_init, adamw_update,
                                cosine_schedule)
@@ -371,7 +371,7 @@ def scatter_add(acc: Sharded, g: torch.Tensor) -> None:
     position adds its block of ``g``, as float32, into its shard."""
     blocks = acc.layout.blocks
     with link_kind("reduce-scatter"):
-        for p, s in enumerate(acc.shards):
+        for p, s in each_copy(enumerate(acc.shards)):
             s.add_(g[blocks[p]].float().to(s.device))
 
 
@@ -473,7 +473,7 @@ def _mesh_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh: Mesh):
                         shapes, grad_shardings(cfg, mesh, shapes))
         acc_leaves = tf.tree_leaves(acc)
         loss = torch.zeros((), dtype=torch.float32, device=home)
-        for row in data_rows:
+        for row in each_row(data_rows):
             live = tf.tree_map(lambda s: s.read(device=row.device)
                                .requires_grad_(), state.params)
             inputs = tf.tree_leaves(live)

@@ -36,6 +36,11 @@ run can fit counts across traces exactly (``launch.dryrun``).
   storage).  A storage made before the trace that is not an argument is
   not counted.
 
+Under ``placed`` the counter also keeps what each data row of a mesh
+step adds (``rows``: ``models.trips.each_row`` names the row running),
+so that the dry run can charge a row it did not run with a row it ran,
+moved to the other row's devices (``predict_row``).
+
 In the dry run each mesh position has a fake device of its own
 (``launch.mesh.fake_devices``), so per device means per position; where
 positions share a device (the one card) it means per device.
@@ -47,7 +52,7 @@ import dataclasses
 import itertools
 import weakref
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -97,6 +102,30 @@ class DeviceStats:
         return sum(self.link.values())
 
 
+_ADDED = ("flops", "hbm_bytes", "ops")
+
+
+@dataclasses.dataclass
+class RowCounts:
+    """What one data row of a mesh step added to a trace
+    (``TraceStats.rows``): each device's FLOPs, HBM bytes, ops and link
+    bytes by kind (``stats``) and, where the counter keeps one, its
+    table by op.  The row's places are those named by its index."""
+
+    stats: Dict[torch.device, DeviceStats]
+    per_op: Optional[dict] = None
+
+
+def _minus(now: DeviceStats, then: Optional[DeviceStats]) -> DeviceStats:
+    if then is None:
+        return dataclasses.replace(now, link=dict(now.link))
+    return DeviceStats(
+        flops=now.flops - then.flops,
+        hbm_bytes=now.hbm_bytes - then.hbm_bytes,
+        link={k: v - then.link[k] for k, v in now.link.items()},
+        ops=now.ops - then.ops)
+
+
 def _tensors(args):
     """The tensors among an op's arguments (one level of lists)."""
     for a in args:
@@ -136,7 +165,10 @@ class TraceStats(TorchDispatchMode):
     since; in the backward, the same for the autograd node being run,
     which is named by the place of the forward op that made it.  Each
     op's results' nodes are tagged with its place when the next op
-    begins (weak references: the tag keeps nothing alive)."""
+    begins (weak references: the tag keeps nothing alive).  A place is
+    (an integer, the data row it lies in or None); ``places`` is keyed
+    by (place, device), and ``rows`` holds each data row's
+    ``RowCounts``."""
 
     def __init__(self, arguments=None, per_op: bool = False,
                  placed: bool = False):
@@ -151,6 +183,11 @@ class TraceStats(TorchDispatchMode):
         self.per_op = per_op
         self.table: Dict[torch.device, Dict[str, list]] = defaultdict(
             lambda: defaultdict(lambda: [0, 0, 0]))
+        #: each data row's additions, once the row has ended
+        self.rows: Dict[int, RowCounts] = {}
+        self._row = None            # the row running, and its start:
+        self._row_start = None      # (each device's stats, ops tables)
+        self._own: Dict[int, list] = {}
         self._held: Dict[int, weakref.ref] = {}
         self._args: set = set()
         self._infos: Dict[object, tuple] = {}
@@ -195,6 +232,64 @@ class TraceStats(TorchDispatchMode):
                 seen.add(id(st))
                 out[t.device] += st.nbytes()
         return out
+
+    # -- data rows ---------------------------------------------------------
+    def _row_switch(self, row) -> None:
+        """The data row running became ``row`` (None: none): close the
+        last one's ``RowCounts`` and open ``row``'s."""
+        if self._row is not None:
+            then, tables = self._row_start
+            stats = {dev: _minus(st, then.get(dev))
+                     for dev, st in self.devices.items()}
+            per_op = None
+            if self.per_op:
+                per_op = {}
+                for dev, tab in self.table.items():
+                    old = tables.get(dev, {})
+                    per_op[dev] = {
+                        k: [a - b for a, b in zip(v, old.get(k, (0, 0, 0)))]
+                        for k, v in tab.items()}
+            self.rows[self._row] = RowCounts(stats, per_op)
+        self._row = row
+        if row is not None:
+            self._row_start = (
+                {dev: _minus(st, None) for dev, st in self.devices.items()},
+                {dev: {k: list(v) for k, v in tab.items()}
+                 for dev, tab in self.table.items()} if self.per_op else {})
+
+    def predict_row(self, row: int, like: int, moved) -> None:
+        """Charge data row ``row``, which did not run, with what row
+        ``like`` added, each device's share on ``moved.get(device,
+        device)``: its counts and ops tables added, its places given in
+        ``row``'s name, and the peaks with them.  (A place of no row
+        that a row's backward reaches, a node named only by its op, is
+        not charged again: the dry run's check of every row would show
+        it.)"""
+        rc = self.rows[like]
+        for dev, st in rc.stats.items():
+            d = self.devices[moved.get(dev, dev)]
+            for f in _ADDED:
+                setattr(d, f, getattr(d, f) + getattr(st, f))
+            for k, v in st.link.items():
+                d.link[k] += v
+        if rc.per_op is not None:
+            for dev, tab in rc.per_op.items():
+                mine = self.table[moved.get(dev, dev)]
+                for k, v in tab.items():
+                    got = mine[k]
+                    for i in range(3):
+                        got[i] += v[i]
+        own = self._own.get(like)
+        if own is None:
+            own = self._own[like] = [
+                (place[0], dev, v) for (place, dev), v in self.places.items()
+                if place[1] == like]
+        places, devices = self.places, self.devices
+        for h, dev, v in own:
+            at = moved.get(dev, dev)
+            places[((h, row), at)] = v
+            if v > devices[at].peak_bytes:
+                devices[at].peak_bytes = v
 
     # -- places in the loop nest -----------------------------------------
     def enter(self, outs) -> None:
@@ -279,6 +374,9 @@ class TraceStats(TorchDispatchMode):
         if not outs:
             return
         if self.placed:
+            row = trips.now()
+            if row != self._row:
+                self._row_switch(row)
             self.enter(outs)
         dev = outs[0].device
         devices = self.devices
@@ -331,14 +429,16 @@ def count(step, *args, arguments=None, per_op: bool = False, fake=None,
     if fake is None:
         with counter:
             out = step(*args, **kwargs)
-        return out, counter
-    fake.counter = counter
-    try:
-        out = step(*args, **kwargs)
-    finally:
-        fake.counter = None
+    else:
+        fake.counter = counter
+        try:
+            out = step(*args, **kwargs)
+        finally:
+            fake.counter = None
+    if counter._row is not None:
+        counter._row_switch(None)
     return out, counter
 
 
-__all__ = ["COLLECTIVES", "DeviceStats", "TraceStats", "count",
-           "tree_tensors"]
+__all__ = ["COLLECTIVES", "DeviceStats", "RowCounts", "TraceStats",
+           "count", "tree_tensors"]

@@ -51,8 +51,8 @@ def shape_of(arch: str, kind: str, where: str) -> dict:
     sequence, batch and microbatches, the least that makes one or two
     of its loops longer than ``trips.small`` (6 groups, 6 microbatches
     or pieces a data row, 6 query chunks of 512 in 3,072 tokens, 6
-    chunks of 512 in a chunked prefill, 8 or 16 SSD chunks of 32, 7
-    mLSTM chunks of 256, an sLSTM of 16 to 1,792 steps)."""
+    chunks of 512 in a chunked prefill, 8 or 16 SSD chunks of 32, 10
+    mLSTM chunks of 256, an sLSTM of 16 to 2,560 steps)."""
     sh_ = dict(groups=2, enc=2, seq=512, batch=2, micro=1)
     if kind == "decode":
         sh_.update(groups=6, seq=64)
@@ -73,7 +73,7 @@ def shape_of(arch: str, kind: str, where: str) -> dict:
         if kind != "chunked":
             sh_["seq"] = min(sh_["seq"], 256)
     if arch == "xlstm-350m" and kind != "decode":
-        sh_.update(groups=1, seq={("prefill", "one_device"): 1792,
+        sh_.update(groups=1, seq={("prefill", "one_device"): 2560,
                                   ("prefill", "mesh"): 256}.get(
                                       (kind, where), 16))
     if arch == "whisper-tiny" and kind in ("train", "prefill") \
