@@ -182,12 +182,15 @@ Phases, each fatal on failure:
       device's, ms a step, tokens/s, peak memory, each position's bytes
       held (parameters, moments, the gradient buffer's layout; a ZeRO-1
       share over 1.05 of an eighth fails);
-   b. gemma-2b served on the mesh (caches with S over ``model``): 11a's
-      prompts and 32 greedy steps against the one-device port on the
-      same weights: every greedy token equal, or a row parted at a tie
-      of one device's top two; an f32 copy fed the same tokens within
-      1e-3 of the logits' scale; prefill and decode device ms beside
-      one device's;
+   b. gemma-2b served on the mesh (caches with S over ``model``; each
+      position computes its own column, row, vocab blocks and heads,
+      reading its block of one group's weights at a time: a read of a
+      ``model``-split leaf that is not one position's block fails):
+      11a's prompts and 32 greedy steps against the one-device port on
+      the same weights: every greedy token equal, or a row parted at a
+      tie of one device's top two; an f32 copy fed the same tokens
+      within 1e-3 of the logits' scale; prefill and decode device ms
+      beside one device's and the gathered step's (``GATHERED_MS``);
    c. moonshot-v1-16b-a3b at full width, one pattern group, f32 (one-hot
       lookups, ``moe_apply_dist``): one AdamW step on the mesh against
       the one-device step on the same groups (loss and gradient norm
@@ -205,7 +208,8 @@ Phases, each fatal on failure:
     held to the card —
    a. 12a's gemma-2b train step (4 x 512 tokens, 4 microbatches, remat),
       on one device and on 13a's (2, 4) mesh, then 11a's prefill of four
-      512-token prompts and one decode step: each placed on the card,
+      512-token prompts and one decode step, on one device and on 13b's
+      (2, 4) mesh (each position its own blocks): each placed on the card,
       timed, run again under ``FlopCounterMode``, and counted by the dry
       run with every position on one fake device (as on the one card),
       its counts fitted over the loops' trip counts (``TripCounts``):
@@ -218,9 +222,9 @@ Phases, each fatal on failure:
       traced bytes' ``memory_s`` printed;
    b. three production cells on the 16 x 16 mesh counted on the card's
       host (fake devices, no card memory, fitted over trip counts; a
-      train step's data rows but the first, the last and one more
-      predicted from those and held to the trace of every row at caps
-      of 1), each by ``python -m repro_torch.launch.dryrun`` in a process
+      step's data rows but the first, the last and one more predicted
+      from those and held to the trace of every row at caps of 1), each
+      by ``python -m repro_torch.launch.dryrun`` in a process
       started after phase 1 that runs beside the card's phases at the
       lowest priority (``nice -n 19``): gemma-2b ``decode_32k``,
       qwen3-moe-235b-a22b ``train_4k`` and xlstm-350m ``train_4k`` (four
@@ -3561,6 +3565,10 @@ MESH_TRAIN_TOL = 1e-2
 #: MESH_SERVE_TOL_F32 (the decode's softmax combined by log-sum-exp over
 #: the positions' S blocks, in f32, where one device softmaxes whole)
 MESH_SERVE_TOL_F32 = 1e-3
+#: 13b: prefill and decode device ms of the mesh step that gathered the
+#: whole model onto each data row's first position, before the steps
+#: split it over ``model`` (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6)
+GATHERED_MS = dict(prefill=41.53, decode=29.74)
 #: 13c: moonshot-v1-16b-a3b at full width, one pattern group, f32: two
 #: prompts a data row of MOE_SEQ tokens, n_micro 2 on the mesh against
 #: n_micro 4 on one device (the same groups: a piece of a microbatch per
@@ -3690,6 +3698,56 @@ def mesh_greedy(run, want, tol, label, cfg):
                 rows_parted_at_a_tie=ties)
 
 
+class BlockReads:
+    """A spy on ``Sharded.read`` and ``gather_box`` over a placed
+    parameter tree's leaves:
+    counts each read of a leaf split over ``model`` that is one
+    position's block of one group, and each that is not (its leaf named),
+    while entered."""
+
+    def __init__(self, params, mesh):
+        from repro_torch.dist import sharding
+        self.sharding, self.m = sharding, mesh.shape["model"]
+        self.leaves = {id(x) for x in tf_leaves(params)}
+        self.blocks, self.whole = 0, []
+
+    def __enter__(self):
+        self._reads = {k: getattr(self.sharding.Sharded, k)
+                       for k in ("read", "gather_box")}
+        for name, read in self._reads.items():
+            setattr(self.sharding.Sharded, name, self._spy(read))
+        return self
+
+    def _spy(self, read):
+        def counted(leaf, box=None, device=None):
+            if id(leaf) in self.leaves:
+                self.check(leaf, box)
+            return read(leaf, box, device)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, read in self._reads.items():
+            setattr(self.sharding.Sharded, name, read)
+
+    def check(self, leaf, box):
+        parts = leaf.sharding._parts(leaf.ndim)
+        dims = [i for i, a in enumerate(parts)
+                if "model" in self.sharding.axes_of(a)]
+        if not dims:
+            return
+        box = box or self.sharding.full_box(leaf.shape)
+        n = box[dims[0]].stop - box[dims[0]].start
+        if n * self.m == leaf.shape[dims[0]]:
+            self.blocks += 1
+        else:
+            self.whole.append((tuple(leaf.shape), str(leaf.sharding.spec)))
+
+
+def tf_leaves(tree):
+    from repro_torch.models.transformer import tree_leaves
+    return tree_leaves(tree)
+
+
 def mesh_serve_path(args, dist, serve, tf, smi, phase11):
     """13b.  gemma-2b whole served on the mesh (params_shardings, caches
     by cache_shardings: S over `model`): 11a's four prompts of 512 tokens
@@ -3710,7 +3768,13 @@ def mesh_serve_path(args, dist, serve, tf, smi, phase11):
     placed = dist.device_put(params, serve.params_shardings(cfg, mesh,
                                                             params))
     torch.cuda.reset_peak_memory_stats()
-    run = serve_run(tf, serve, cfg, placed, toks, {}, FULL_STEPS, mesh=mesh)
+    with BlockReads(placed, mesh) as reads:
+        run = serve_run(tf, serve, cfg, placed, toks, {}, FULL_STEPS,
+                        mesh=mesh)
+    rec["block_reads"] = reads.blocks
+    if reads.whole or not reads.blocks:
+        fail(f"13b: the mesh steps read {len(reads.whole)} model-split "
+             f"leaves whole ({reads.whole[:4]}) and {reads.blocks} blocks")
     rec["greedy"] = mesh_greedy(run, one, TF_TOL_BF16, "13b bf16", cfg)
     prof = step_profiles(serve, cfg, placed, toks, run, last,
                          dict(prefill=2, decode=5), mesh=mesh)
@@ -3726,7 +3790,13 @@ def mesh_serve_path(args, dist, serve, tf, smi, phase11):
                         tokens_per_s=one["tokens_per_s"],
                         phase11_prefill_ms=phase11["prefill_ms"],
                         phase11_decode_ms=phase11["decode_ms"]),
-        held_gb=held_gb(dist, placed, mesh))
+        held_gb=held_gb(dist, placed, mesh), gathered_ms=GATHERED_MS)
+    print(f"mesh 13b gemma-2b on the (2, 4) mesh, each position its own "
+          f"blocks: prefill {rec['prefill_ms']:.2f} ms, decode "
+          f"{rec['decode_ms']:.2f} ms a step on the card's clock (the "
+          f"gathered step: {GATHERED_MS['prefill']} / "
+          f"{GATHERED_MS['decode']} ms, NVIDIA H100 80GB HBM3, 700 W); "
+          f"{smi}", flush=True)
     fed = one["fed"]
     del run, one, placed
     torch.cuda.empty_cache()
@@ -4128,60 +4198,83 @@ def dry_train(args, train, tf, dist, traffic, smi, mesh_run):
     return out
 
 
-def dry_serve(args, serve, tf, traffic, smi):
+def dry_serve(args, serve, tf, dist, traffic, smi, mesh_run):
     """14a, serving: 11a's prefill of four 512-token prompts and one
     decode step at position 512 (caches of 544, filled by a prefill
-    first), placed, timed, counted and traced by the dry run on one fake
-    device."""
+    first), on one device and on 13b's (2, 4) mesh of positions on the
+    card (each position its own blocks), placed, timed, counted and
+    traced by the dry run on one fake device."""
     from repro_torch.configs import get_config
     cfg = get_config(FULL_ARCH)
     smax = FULL_PROMPT + FULL_STEPS
+    tok_specs = dict(prefill={"tokens": ((FULL_BATCH, FULL_PROMPT),
+                                         torch.int32)},
+                     decode={"token": ((FULL_BATCH, 1), torch.int32),
+                             "pos": ((FULL_BATCH,), torch.int32)})
     out = []
     for kind in ("prefill", "decode"):
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        params = tf.init_params(cfg, gen, "cuda")
-        toks, _ = model_inputs(cfg, FULL_BATCH, FULL_PROMPT, args.seed,
-                               "cuda")
-        if kind == "prefill":
-            caches = tf.init_decode_caches(cfg, FULL_BATCH, FULL_PROMPT,
-                                           "cuda")
-            step = serve.make_prefill_step(cfg)
-            call = (params, caches, toks)
-            lowered = serve.lower_prefill_step(
-                cfg, None, batch=FULL_BATCH, seq_len=FULL_PROMPT,
-                specs={"tokens": ((FULL_BATCH, FULL_PROMPT), torch.int32)})
-            count = traffic.model_prefill(cfg, FULL_BATCH, FULL_PROMPT)
-            flops = traffic.model_step_flops(cfg, FULL_BATCH * FULL_PROMPT,
-                                             FULL_BATCH)
-        else:
-            caches = tf.init_decode_caches(cfg, FULL_BATCH, smax, "cuda")
-            serve.make_prefill_step(cfg)(params, caches, toks)
-            tok = toks[:, -1:].contiguous()
-            del toks
-            pos = torch.full((FULL_BATCH,), FULL_PROMPT, dtype=torch.int32,
-                             device="cuda")
-            step = serve.make_decode_step(cfg)
-            call = (params, caches, tok, pos)
-            lowered = serve.lower_serve_step(
-                cfg, None, batch=FULL_BATCH, seq_len=smax,
-                specs={"token": ((FULL_BATCH, 1), torch.int32),
-                       "pos": ((FULL_BATCH,), torch.int32)})
-            count = traffic.model_decode(cfg, FULL_BATCH,
-                                         FULL_BATCH * (FULL_PROMPT + 1))
-            flops = traffic.model_step_flops(cfg, FULL_BATCH, FULL_BATCH)
-        torch.cuda.synchronize()
-        grown = torch.cuda.memory_allocated() - before
-        ms, card_flops, temp = measured_step(step, call, {})
-        out.append(hold_count(kind, lowered, tree_nbytes(call), grown, ms,
-                              card_flops, temp,
-                              1e3 * traffic.model_bound_s(count, flops),
-                              smi))
-        # nothing of this step may be freed inside the next one's count
-        del params, caches, call, step, gen
-        toks = None
+        for where in ("one_device", "mesh"):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+            params = tf.init_params(cfg, gen, "cuda")
+            toks, _ = model_inputs(cfg, FULL_BATCH, FULL_PROMPT, args.seed,
+                                   "cuda")
+            mesh = fake = None
+            if where == "mesh":
+                mesh = mesh_of(dist, MESH_SHAPE, MESH_AXES)
+                fake = mesh_run(["cpu:0"] * MESH_POSITIONS)
+                params = dist.device_put(params, serve.params_shardings(
+                    cfg, mesh, params))
+                torch.cuda.empty_cache()
+            clen = FULL_PROMPT if kind == "prefill" else smax
+            caches = tf.init_decode_caches(cfg, FULL_BATCH, clen, "cuda")
+            if mesh is not None:
+                caches = dist.device_put(caches, serve.cache_shardings(
+                    cfg, mesh, caches))
+                torch.cuda.empty_cache()
+            if kind == "prefill":
+                step = serve.make_prefill_step(cfg, mesh=mesh)
+                inputs = (toks,)
+                lowered = serve.lower_prefill_step(
+                    cfg, fake, batch=FULL_BATCH, seq_len=FULL_PROMPT,
+                    specs=tok_specs[kind])
+                count = traffic.model_prefill(cfg, FULL_BATCH, FULL_PROMPT)
+                flops = traffic.model_step_flops(
+                    cfg, FULL_BATCH * FULL_PROMPT, FULL_BATCH)
+            else:
+                serve.make_prefill_step(cfg, mesh=mesh)(params, caches, toks)
+                inputs = (toks[:, -1:].contiguous(), torch.full(
+                    (FULL_BATCH,), FULL_PROMPT, dtype=torch.int32,
+                    device="cuda"))
+                del toks
+                step = serve.make_decode_step(cfg, mesh=mesh)
+                lowered = serve.lower_serve_step(
+                    cfg, fake, batch=FULL_BATCH, seq_len=smax,
+                    specs=tok_specs[kind])
+                count = traffic.model_decode(cfg, FULL_BATCH,
+                                             FULL_BATCH * (FULL_PROMPT + 1))
+                flops = traffic.model_step_flops(cfg, FULL_BATCH, FULL_BATCH)
+            if mesh is None:
+                call = (params, caches) + inputs
+                held = tree_nbytes(call)
+            else:
+                inputs = tuple(dist.place(t, serve._token_sharding(
+                    mesh, t.shape)) for t in inputs)
+                toks = None
+                call = (params, caches) + inputs
+                held = sum(dist.held_bytes(call, mesh))
+            torch.cuda.synchronize()
+            grown = torch.cuda.memory_allocated() - before
+            ms, card_flops, temp = measured_step(step, call, {})
+            out.append(hold_count(f"{kind} {where}", lowered, held, grown,
+                                  ms, card_flops, temp,
+                                  1e3 * traffic.model_bound_s(count, flops),
+                                  smi))
+            # nothing of this step may be freed inside the next one's count
+            del params, caches, call, step, gen, inputs
+            toks = None
     torch.cuda.empty_cache()
     return out
 
@@ -4286,7 +4379,7 @@ def dryrun_path(args, counters, smi, cells):
     times = {}
     dry_train(args, train, tf, dist, traffic, smi, mesh_run)
     times["14a train"] = time.perf_counter() - t0
-    dry_serve(args, serve, tf, traffic, smi)
+    dry_serve(args, serve, tf, dist, traffic, smi, mesh_run)
     times["14a serve"] = time.perf_counter() - t0 - times["14a train"]
     times["14b"] = cells.collect(smi)
     launches = {k: w.launches for k, w in counters.items()}

@@ -32,6 +32,15 @@ here by hand:
   the reference writes a ``shard_map``.  ``shard`` and
   ``shard_activation_sp`` are identities on values: layout is owned by
   placement, not by annotations inside the computation.
+* **Tensor parallelism over ``model``** (the serving steps): a data
+  row's ``RowSplit`` views a placed parameter tree as ``Blocks``, one a
+  leaf, which read position j's block along the leaf's ``model`` dim onto
+  j's device, one pattern group of a stacked leaf at a time, when the
+  model code first asks for it (a leaf whose spec does not name
+  ``model`` is read whole, a copy a position).  The row's first position
+  (its home) keeps the residual stream; ``spread``, ``sum``, ``gather``
+  and ``scatter`` move a row's activations between the home and its
+  positions in position order.
 """
 
 from __future__ import annotations
@@ -489,6 +498,14 @@ def _shift(box, origin):
                  for s, o in zip(box, origin))
 
 
+def _cut(t: torch.Tensor, box) -> torch.Tensor:
+    """``t[box]``, narrowing only the dims the box cuts."""
+    for i, sl in enumerate(box):
+        if sl.start != 0 or sl.stop != t.shape[i]:
+            t = t.narrow(i, sl.start, sl.stop - sl.start)
+    return t
+
+
 def full_box(shape) -> Tuple[slice, ...]:
     return tuple(slice(0, n) for n in shape)
 
@@ -536,6 +553,19 @@ class Sharded:
         with link_kind("all-gather"):
             for p, dst, src in each_copy(self.layout.reads(box)):
                 out[dst] = self.shards[p][src].to(device)
+        return out
+
+    def gather_box(self, box, device) -> torch.Tensor:
+        """``read`` with each block copied once, straight into its part of
+        the result (``copy_`` across devices; no copy of the block on its
+        way, and as many ops whether a block is on ``device`` or not): a
+        row's block reads (``Blocks``)."""
+        box = tuple(box)
+        out = torch.empty(tuple(s.stop - s.start for s in box),
+                          dtype=self.dtype, device=device)
+        with link_kind("all-gather"):
+            for p, dst, src in each_copy(self.layout.reads(box)):
+                _cut(out, dst).copy_(_cut(self.shards[p], src))
         return out
 
     def write(self, box, value: torch.Tensor) -> None:
@@ -652,15 +682,20 @@ def _check(xs, mesh: Mesh):
         raise ValueError(f"{len(xs)} values for {mesh.size} positions")
 
 
+def _fold(vals, op):
+    """``vals`` combined by ``op`` in order on the first one's device."""
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = op(acc, v.to(acc.device))
+    return acc
+
+
 def _reduce(xs, mesh: Mesh, axis, op):
     _check(xs, mesh)
     out = [None] * mesh.size
     with link_kind("all-reduce"):
         for g in mesh.groups(axis):
-            dev = xs[g[0]].device
-            acc = xs[g[0]]
-            for p in g[1:]:
-                acc = op(acc, xs[p].to(dev))
+            acc = _fold([xs[p] for p in g], op)
             for p in g:
                 out[p] = acc.to(mesh.devices[p], copy=True)
     return out
@@ -706,6 +741,191 @@ def reduce_scatter(xs, mesh: Mesh, axis, dim: int = 0):
     return out
 
 
+# ---------------------------------------------------------------------------
+# a data row's tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+def even_bounds(n: int, m: int) -> List[Tuple[int, int]]:
+    """``n`` items over ``m`` positions, contiguous and balanced: position
+    j takes [j n // m, (j + 1) n // m) (some take none where n < m)."""
+    return [(j * n // m, (j + 1) * n // m) for j in range(m)]
+
+
+class RowSplit:
+    """A data row's ``model`` positions, as its step computes on them:
+    ``devices`` in position order, ``home`` the first one's, which keeps
+    the residual stream.  ``view`` turns a placed parameter tree into
+    ``Blocks``; the rest move activations between the home and the
+    positions, naming the collective each stands for."""
+
+    def __init__(self, row: Row):
+        self.row = row
+        self.devices = list(row.devices)
+        self.home = row.device
+        self.m = len(self.devices)
+
+    def view(self, params):
+        """Each ``Sharded`` leaf of ``params`` as ``Blocks`` (nothing is
+        read yet)."""
+        from repro_torch.models.transformer import tree_map
+        return tree_map(lambda x: Blocks(x, self)
+                        if isinstance(x, Sharded) else x, params)
+
+    def spread(self, x) -> List[torch.Tensor]:
+        """A home tensor on every position (what the all-reduce before it
+        leaves on each position under SPMD)."""
+        with link_kind("all-reduce"):
+            return [x.to(d) for d in self.devices]
+
+    def sum(self, parts) -> torch.Tensor:
+        """The positions' partial products summed on the home in position
+        order (a psum over ``model``)."""
+        with link_kind("all-reduce"):
+            return _fold(list(parts), torch.add).to(self.home)
+
+    def gather(self, parts, dim: int) -> torch.Tensor:
+        """The positions' parts concatenated along ``dim`` on the home,
+        in position order (an all-gather over ``model``); a position's
+        empty part adds nothing."""
+        with link_kind("all-gather"):
+            return torch.cat([t.to(self.home) for t in parts], dim)
+
+    def scatter(self, x, bounds, dim: int) -> List[torch.Tensor]:
+        """Each position's slice ``bounds[j]`` of a home tensor along
+        ``dim``, on its device (a re-split between two layouts)."""
+        with link_kind("all-to-all"):
+            return [x.narrow(dim, lo, hi - lo).to(d)
+                    for (lo, hi), d in zip(bounds, self.devices)]
+
+    def columns(self, parts, w: "Blocks", want) -> List[torch.Tensor]:
+        """Position j's columns ``want[j]`` of a product whose parts came
+        out of ``w``'s column blocks: kept where each block is just those
+        columns, else gathered on the home and handed out."""
+        if w.dim == len(w.shape) - 1 and w.bounds == list(want):
+            return list(parts)
+        whole = parts[0] if w.dim is None else self.gather(parts, -1)
+        return self.scatter(whole, want, -1)
+
+    def columns_product(self, x, w: "Blocks",
+                        f32: bool = False) -> torch.Tensor:
+        """``x @ w`` (both in float32 where ``f32``) for a home ``x`` and
+        ``w`` split over its columns: each position its columns, gathered
+        on the home (for an op that needs the columns whole)."""
+        xs = self.spread(x)
+        parts = [xs[j].float() @ w.block(j).float() if f32
+                 else xs[j] @ w.block(j) for j in range(self.m)]
+        return parts[0] if w.dim is None else self.gather(parts, -1)
+
+    def rows_product(self, x, w: "Blocks", have=None) -> torch.Tensor:
+        """``x @ w`` for ``w`` split over its rows (the contracted dim):
+        each position multiplies its block by its columns of ``x`` and
+        the row sums the partial products.  ``x`` is a home tensor, or
+        the positions' parts holding its columns ``have[j]``.  A ``w``
+        that names no ``model`` is multiplied whole on every position and
+        the home's product kept."""
+        if have is not None and (w.dim is None or w.bounds != list(have)):
+            x, have = self.gather(x, -1), None
+        if have is None:
+            x = (self.spread(x) if w.dim is None
+                 else self.scatter(x, w.bounds, -1))
+        parts = [x[j] @ w.block(j) for j in range(self.m)]
+        return parts[0] if w.dim is None else self.sum(parts)
+
+    def even(self, n: int) -> Optional[List[Tuple[int, int]]]:
+        """``n`` split evenly over the positions, or None if it does not
+        divide."""
+        return even_bounds(n, self.m) if n % self.m == 0 else None
+
+
+class Blocks:
+    """One placed parameter leaf (of a stacked leaf, one pattern group:
+    ``leaf[lead]``) as a data row's positions read it.  ``dim`` is the
+    leaf's dim that its spec splits over ``model`` (None: it names no
+    ``model``), ``bounds[j]`` position j's block along it.  ``block(j)``
+    reads position j's block onto its device across the other axes (the
+    FSDP all-gather, ``Sharded.gather_box``), once; a leaf that names no
+    ``model`` is read whole (each position its own copy, as SPMD
+    replicates it).  Indexing by an integer takes one group of a
+    stacked leaf: its own read, unless the spec splits the stacked dim
+    (``zero1_spec`` may put ``data`` there), where a group lies on one
+    data row and its reads would be local for some groups and not for
+    others: then position j reads its block of every group once (what a
+    scan over a split dim gathers) and each group is a slice of it.  No
+    method reads a ``model``-split leaf whole on one position but
+    ``whole_at``, for the expert-parallel router."""
+
+    def __init__(self, leaf: Sharded, split: RowSplit, lead=(),
+                 parent: Optional["Blocks"] = None):
+        self.leaf, self.split, self.lead = leaf, split, tuple(lead)
+        self.parent = parent
+        parts = leaf.sharding._parts(leaf.ndim)
+        dims = [i for i, p in enumerate(parts) if "model" in axes_of(p)]
+        if len(dims) > 1 or (dims and dims[0] < len(self.lead)):
+            raise ValueError(f"spec {leaf.sharding.spec} splits the "
+                             "stacked dims or two dims over model")
+        self.shape = tuple(leaf.shape[len(self.lead):])
+        self.dim = dims[0] - len(self.lead) if dims else None
+        self.bounds = None
+        if self.dim is not None:
+            axes = axes_of(parts[dims[0]])
+            if axes[0] != "model":
+                raise ValueError(f"spec {leaf.sharding.spec}: model is not "
+                                 "the outermost axis of its dim")
+            self.bounds = even_bounds(self.shape[self.dim], split.m)
+        self._got: Dict[int, torch.Tensor] = {}
+
+    def __getitem__(self, r: int) -> "Blocks":
+        stacked = self.leaf.sharding._parts(self.leaf.ndim)[len(self.lead)]
+        return Blocks(self.leaf, self.split, self.lead + (r,),
+                      self if stacked is not None else None)
+
+    def again(self) -> "Blocks":
+        """The same view with nothing read yet."""
+        return Blocks(self.leaf, self.split, self.lead, self.parent)
+
+    def _read(self, box, j: int) -> torch.Tensor:
+        lead = tuple(slice(r, r + 1) for r in self.lead)
+        got = self.leaf.gather_box(lead + tuple(box), self.split.devices[j])
+        return got[(0,) * len(lead)] if lead else got
+
+    def block(self, j: int) -> torch.Tensor:
+        if self.parent is not None:
+            return self.parent.block(j)[self.lead[-1]]
+        got = self._got.get(j)
+        if got is None:
+            box = [slice(0, n) for n in self.shape]
+            if self.dim is not None:
+                box[self.dim] = slice(*self.bounds[j])
+            got = self._got[j] = self._read(box, j)
+        return got
+
+    def home(self) -> torch.Tensor:
+        """A leaf that names no ``model``, whole on the row's home."""
+        if self.dim is not None:
+            raise ValueError(f"a leaf split over model (spec "
+                             f"{self.leaf.sharding.spec}) has no home copy: "
+                             "read its blocks")
+        return self.block(0)
+
+    def whole_at(self, j: int) -> torch.Tensor:
+        """The whole leaf on position j: only the expert-parallel router,
+        which the reference's ``shard_map`` takes replicated."""
+        if self.parent is not None:
+            return self.parent.whole_at(j)[self.lead[-1]]
+        return self._read([slice(0, n) for n in self.shape], j)
+
+
+def row_split(w) -> Optional[RowSplit]:
+    """The row split a ``Blocks`` leaf belongs to (None for a tensor)."""
+    return w.split if isinstance(w, Blocks) else None
+
+
+def home(w):
+    """A tensor as is; a ``Blocks`` leaf that names no ``model``, whole on
+    its row's home."""
+    return w.home() if isinstance(w, Blocks) else w
+
+
 __all__ = ["RULES_2D", "RULES_3D", "sp_rules", "P", "Mesh", "make_mesh",
            "abstract_mesh", "NamedSharding", "Layout", "Sharded", "use_mesh",
            "current_mesh", "current_rules", "spec", "shard",
@@ -713,5 +933,6 @@ __all__ = ["RULES_2D", "RULES_3D", "sp_rules", "P", "Mesh", "make_mesh",
            "pmax", "pmean", "all_gather", "reduce_scatter", "rows", "Row",
            "row_scope", "current_row", "batch_axes", "tree_map2",
            "tree_map_with_path", "held_bytes", "axes_of", "full_box",
-           "zeros", "link_kind", "current_link_kind"]
+           "zeros", "link_kind", "current_link_kind", "RowSplit",
+           "Blocks", "row_split", "home", "even_bounds"]
 

@@ -335,14 +335,17 @@ def _grid_weights(axes, grid, at) -> list:
 
 
 class RowPlan:
-    """The data rows of a mesh train step that the dry run runs, and the
-    row each other row is charged like (``TraceStats.predict_row``).
+    """The data rows of a mesh step that the dry run runs, and the row
+    each other row is charged like (``TraceStats.predict_row``).
 
     Every data row runs the same ops on the same shapes, on its own
     positions, and exchanges the same blocks with the others: it reads
     each parameter block from its first holder, adds its gradients'
     blocks into every position's, sends its loss to the first position
-    (``launch.train``).  So a row not run counts as a row that ran, with
+    (``launch.train``); a serving step's row reads its positions'
+    parameter blocks the same way, writes its own rows of the caches and
+    sends its logits to the first position (``launch.serve``).  So a row
+    not run counts as a row that ran, with
     the two rows' positions swapped, where the swap changes nothing else
     of the step.  It does not for:
 
@@ -361,21 +364,38 @@ class RowPlan:
 
     Those rows run, with one row of each pod and types (its last other
     row); the others are predicted.  The dry run holds the prediction to
-    the trace of every row at caps of 1 (``TripCounts``)."""
+    the trace of every row at caps of 1 (``TripCounts``).
 
-    def __init__(self, mesh):
+    A serving step's row on a mesh of pods also writes its caches'
+    replicas on its twins, the rows of its ``data`` index in the other
+    pods (``launch.serve._row_span``): a row is then charged like
+    another with their twins swapped too, the home's twins run, and a
+    row's group also names its twins' device types."""
+
+    def __init__(self, mesh, twins: bool = False):
         data_rows = rows(mesh)
         inner = batch_axes(mesh)[:-1]   # the axes a pod is named by
         typed = any(d.index is None for d in mesh.devices)
+        n_data = mesh.shape.get("data", 1)
+
+        def twins_of(row):      # the rows of its data index, other pods
+            if not twins or not inner:
+                return []
+            return [t for t in data_rows if t is not row
+                    and t.index % n_data == row.index % n_data]
+
+        def types(row):
+            return tuple(d.type for d in row.devices) if typed else ()
 
         def group(row):         # its pod, and its devices' types
             c = mesh.coords(row.positions[0])
-            return (tuple(c[a] for a in inner),
-                    tuple(d.type for d in row.devices) if typed else ())
+            return (tuple(c[a] for a in inner), types(row),
+                    tuple(types(t) for t in twins_of(row)))
 
         def special(row):
-            return 0 in row.positions or any(d.index is None
-                                             for d in row.devices)
+            return any(0 in r.positions or any(d.index is None
+                                               for d in r.devices)
+                       for r in [row] + twins_of(row))
 
         like = {}
         for r in reversed(data_rows):
@@ -390,20 +410,21 @@ class RowPlan:
         for r in data_rows:
             if r.index not in run:
                 t = like[group(r)]
-                moved = dict(zip(t.devices, r.devices))
-                moved.update(zip(r.devices, t.devices))
+                moved = {}
+                for a, c in zip([t] + twins_of(t), [r] + twins_of(r)):
+                    moved.update(zip(a.devices, c.devices))
+                    moved.update(zip(c.devices, a.devices))
                 self.like[r.index] = (t.index, moved)
 
     @classmethod
     def of(cls, lowered):
         """The plan of ``lowered``'s step, or None where every row runs:
-        not a train step on a mesh of distinct devices, or no row to
+        not a step on a mesh of distinct devices, or no row to
         predict."""
         mesh = lowered.mesh
-        if lowered.kind != "train" or mesh is None or \
-                len(set(mesh.devices)) != mesh.size:
+        if mesh is None or len(set(mesh.devices)) != mesh.size:
             return None
-        plan = cls(mesh)
+        plan = cls(mesh, twins=lowered.kind != "train")
         return plan if plan.like else None
 
     def predict(self, counter) -> None:
@@ -440,7 +461,7 @@ class TripCounts:
     must be a whole, non-negative number; else ``TripFailure``.
     Argument bytes are the placed arguments' (the same in every trace).
 
-    A mesh train step's traces run only the data rows of its
+    A mesh step's traces run only the data rows of its
     ``RowPlan`` and charge the others like them.  The first trace is
     then made twice, of those rows and of every row (beside the others),
     and the prediction must equal the trace of every row in every field

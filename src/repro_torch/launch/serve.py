@@ -12,16 +12,23 @@ over ``model``, else the last divisible feature dim).
 
 **On a mesh** (``make_prefill_step(cfg, mesh=)``,
 ``make_decode_step(cfg, mesh=)``, the parameters and caches placed by
-those shardings) each data row, one after another, gathers every
-parameter onto its device and runs its batch shard through the model
-under ``use_mesh``: a sequence-split KV cache is seen in place as
+those shardings) each data row, one after another, runs its batch shard
+through the model under ``use_mesh`` with the reference's tensor
+parallelism over ``model`` (``dist.sharding.RowSplit``): each of the
+row's positions computes its own column, row, vocab and expert blocks on
+its device, reading its block of a pattern group's weights when the
+group runs, and the row's first position (its home) keeps the residual
+stream; no position holds a ``model``-split leaf whole (but the
+expert-parallel router, which the reference's ``shard_map`` replicates).
+A sequence-split KV cache is seen in place as
 ``attention.SeqBlocks`` (prefill writes each position's S block; decode
 writes the new K/V into the position that owns ``pos`` and combines the
 positions' partial softmax statistics, the distributed flash decode the
 reference's ``cache_leaf_spec`` asks of GSPMD); every other cache leaf
 (SSM and xLSTM states, a cache whose S dim does not split) is gathered
-for the step and written back to its shards.  The logits come back whole
-on the mesh's first device.  The chunked prefill on a mesh
+for the step and written back to its shards, and handed to the positions
+by heads where they need it.  The logits come back whole on the mesh's
+first device.  The chunked prefill on a mesh
 (``make_chunked_prefill_step(cfg, mesh=)``) gathers each row's cache
 rows whole onto the row's device, runs ``prefill_chunked`` there and
 writes them back: its chunks append at any offset, which the sequence
@@ -35,8 +42,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.dist.sharding import (Mesh, NamedSharding, P, Sharded,
-                                       batch_axes, full_box, place,
+from repro_torch.dist.sharding import (Mesh, NamedSharding, P, RowSplit,
+                                       Sharded, batch_axes, full_box, place,
                                        row_scope, rows, tree_map2,
                                        tree_map_with_path, use_mesh)
 from repro_torch.launch.mesh import Lowered, fake_mode, placed, positions
@@ -44,6 +51,7 @@ from repro_torch.launch.train import param_spec, sanitize_spec, zero1_spec
 from repro_torch.models import transformer as tf
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.attention import KVCache, SeqBlocks
+from repro_torch.models.trips import each_row
 
 
 def cache_leaf_spec(shape, mesh: Mesh) -> P:
@@ -137,33 +145,43 @@ def make_chunked_prefill_step(cfg: ArchConfig, chunk_len: int = 2048,
 # the steps on a mesh
 # ---------------------------------------------------------------------------
 
-def _row_span(b: int, n_rows: int, r: int):
-    """The batch rows data row ``r`` computes: its block where the batch
-    splits over the rows, else all of it on row 0 (and none elsewhere)."""
-    if b % n_rows == 0:
-        k = b // n_rows
-        return r * k, (r + 1) * k
-    return (0, b) if r == 0 else (0, 0)
+def _row_span(b: int, mesh: Mesh, r: int):
+    """The batch rows data row ``r`` computes where the batch splits over
+    the rows, else all of it on row 0 (and none elsewhere).  The rows of
+    one ``data`` index (one a pod) take that index's block of the batch,
+    pod by pod: a cache splits its batch over ``data`` alone
+    (``cache_leaf_spec``), so each row's cache rows lie on its own
+    positions and their replicas in the other pods."""
+    n_rows = len(rows(mesh))
+    if b % n_rows:
+        return (0, b) if r == 0 else (0, 0)
+    k, n_data = b // n_rows, mesh.shape.get("data", 1)
+    pod, d = divmod(r, n_data)
+    lo = (d * (n_rows // n_data) + pod) * k
+    return lo, lo + k
 
 
-def _batch_part(x, lo: int, hi: int, device):
-    if isinstance(x, Sharded):
-        return x.read((slice(lo, hi),) + full_box(x.shape)[1:], device)
-    return x[lo:hi].to(device)
+def _on_home(x, home):
+    """A step input (token ids, positions, frontend extras) whole on the
+    mesh's first device, from which each row takes its rows: a row's
+    rows need not be the block it holds (``_row_span``)."""
+    return x.read(device=home) if isinstance(x, Sharded) else x
 
 
-def _seq_view(x: Sharded, lo: int, hi: int):
+def _seq_view(x: Sharded, lo: int, hi: int, mine=()):
     """A KV cache leaf [R, B, S, g, hd] whose S dim is split over ``model`` alone
     (and B over the batch axes or not at all), as ``SeqBlocks`` over rows
-    [lo, hi) of its first holders, in place; None for any other leaf.
-    The other holders of the same blocks (replicas) are returned too, to
-    be brought level after the step."""
+    [lo, hi) of their holders (the positions ``mine`` first, then in
+    position order), in place; None for any other leaf.  The other
+    holders of the same blocks (replicas) are returned too, to be brought
+    level after the step."""
     if x.ndim != 5 or tuple(x.sharding._parts(5)[2:]) != ("model", None,
                                                             None):
         return None
     parts, offsets, replicas = [], [], []
     seen = {}
-    for p in range(x.mesh.size):
+    holders = list(mine) + [p for p in range(x.mesh.size) if p not in mine]
+    for p in holders:
         blk = x.block(p)
         if not (blk[1].start <= lo and hi <= blk[1].stop):
             continue
@@ -180,9 +198,11 @@ def _seq_view(x: Sharded, lo: int, hi: int):
                       [offsets[i] for i in order], 2), replicas)
 
 
-def _row_caches(caches, lo: int, hi: int, device, kind: str):
-    """A data row's view of placed caches (rows [lo, hi) of the batch),
-    and what to do after its step: (view tree, write-backs, replicas).
+def _row_caches(caches, lo: int, hi: int, row, kind: str):
+    """A data row's view of placed caches (rows [lo, hi) of the batch: a
+    sequence-split leaf's blocks on the row's own positions where it
+    holds them), and what to do after its step: (view tree, write-backs,
+    replicas).
     An enc-dec arch's cross K/V (``"xkv"``) is read whole by decode and
     left out of prefill, which makes it anew."""
     back, reps = [], []
@@ -191,8 +211,11 @@ def _row_caches(caches, lo: int, hi: int, device, kind: str):
         box = full_box(x.shape)
         return box[:1] + (slice(lo, hi),) + box[2:]
 
+    device = row.device
+
     def one(x, kv: bool):
-        seq = _seq_view(x, lo, hi) if kv and kind != "chunked" else None
+        seq = (_seq_view(x, lo, hi, row.positions)
+               if kv and kind != "chunked" else None)
         if seq is not None:
             reps.extend(seq[1])
             return seq[0]
@@ -218,42 +241,50 @@ def _mesh_step(cfg: ArchConfig, mesh: Mesh, kind: str, chunk_len=None):
     @torch.inference_mode()
     def step(params, caches, tokens, pos=None, **extras):
         b = tokens.shape[0]
-        logits, xkvs = [], []
-        for row in data_rows:
-            lo, hi = _row_span(b, len(data_rows), row.index)
+        tokens, pos = _on_home(tokens, home), _on_home(pos, home)
+        extras = {k: _on_home(v, home) for k, v in extras.items()}
+        # each row writes its part of the outputs, made whole up front
+        logits = torch.empty((b, 1, cfg.vocab_padded), dtype=torch.float32,
+                             device=home)
+        xkv = None
+        if kind == "prefill" and cfg.enc_dec:
+            xkv = tuple(torch.empty(
+                (cfg.pattern_reps, b, cfg.enc_seq, cfg.n_kv_heads,
+                 cfg.head_dim), dtype=tf._dtype(cfg), device=home)
+                for _ in range(2))
+        for row in each_row(data_rows):
+            lo, hi = _row_span(b, mesh, row.index)
             if lo == hi:
                 continue
-            full = tf.tree_map(lambda s: s.read(device=row.device), params)
-            toks = _batch_part(tokens, lo, hi, row.device)
-            view, back, reps = _row_caches(caches, lo, hi, row.device,
-                                           kind)
+            view = RowSplit(row).view(params)
+            toks = tokens[lo:hi].to(row.device)
+            cview, back, reps = _row_caches(caches, lo, hi, row, kind)
             with use_mesh(mesh), row_scope(row):
                 if kind == "decode":
-                    out, view = tf.decode_step(
-                        cfg, full, toks, view,
-                        _batch_part(pos, lo, hi, row.device))
+                    out, cview = tf.decode_step(
+                        cfg, view, toks, cview,
+                        pos[lo:hi].to(row.device))
                 elif kind == "chunked":
-                    out, view = tf.prefill_chunked(cfg, full, toks, view,
-                                                   chunk_len=chunk_len)
+                    out, cview = tf.prefill_chunked(cfg, view, toks, cview,
+                                                    chunk_len=chunk_len)
                 else:
-                    out, view = tf.prefill(
-                        cfg, full, toks, view,
-                        **{k: _batch_part(v, lo, hi, row.device)
+                    out, cview = tf.prefill(
+                        cfg, view, toks, cview,
+                        **{k: v[lo:hi].to(row.device)
                            for k, v in extras.items()})
             for x, box, t in back:
                 x.write(box, t)
             for src, dst in reps:
                 dst.copy_(src.to(dst.device))
-            if kind == "prefill" and cfg.enc_dec:
-                xkvs.append(view["xkv"])
-            logits.append(out.to(home))
-            del full
-        if xkvs:
-            xkv = tuple(torch.cat([x[i].to(home) for x in xkvs], 1)
-                        for i in range(2))
+            if xkv is not None:
+                for whole, part in zip(xkv, cview["xkv"]):
+                    whole[:, lo:hi] = part.to(home)
+            logits[lo:hi] = out.to(home)
+            del view
+        if xkv is not None:
             sh = NamedSharding(mesh, cache_leaf_spec(xkv[0].shape, mesh))
             caches = {**caches, "xkv": tuple(place(t, sh) for t in xkv)}
-        return torch.cat(logits), caches
+        return logits, caches
 
     if kind == "decode":
         def serve_step(params, caches, token, pos):

@@ -22,6 +22,17 @@ package's ``models/attention.py``).
   that owns each row's position, every block scores and sums over its
   own keys, and the row combines the blocks' (max, sum, output)
   statistics by log-sum-exp (distributed flash decode).
+* Under a data row's tensor parallelism (the parameters are
+  ``dist.sharding.Blocks``) each position projects its own columns of q,
+  k and v and its rows of ``wo`` (the row sums the partial outputs).
+  Position j attends over heads ``head_bounds``'s j-th range with the
+  kv groups they read: where its column blocks hold just those heads and
+  groups they stay on its device, else (a block of part of a head, as a
+  single kv head split four ways) the row gathers the projection and
+  hands each position its heads.  Prefill writes the cache from k and v
+  gathered on the row's home; decode against a sequence-split cache
+  scores every block with q gathered; a cache held whole on the home
+  hands each position its groups' slice.
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.dist.sharding import link_kind
+from repro_torch.dist.sharding import even_bounds, link_kind, row_split
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.layers import dense_init
 from repro_torch.models.trips import pad, trips
@@ -157,6 +168,22 @@ def _decode_blocks(cache: KVCache, q, k, v, idx, window, softcap):
     return out.permute(0, 3, 1, 2, 4).to(cv.dtype)
 
 
+def _decode_dense(q, ck, cv, idx, window, softcap):
+    """One query a row against a whole cache [B, S, g, hd] (its new K/V
+    written): softmax over the positions up to ``idx``."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqghd,bkgd->bghqk", (q * hd ** -0.5).float(),
+                          ck.float())
+    scores = _softcap(scores, softcap)
+    kpos = torch.arange(ck.shape[1], device=q.device)
+    valid = kpos[None, :] <= idx[:, None]              # [B, S]
+    if window is not None:
+        valid &= kpos[None, :] > (idx[:, None] - window)
+    scores = torch.where(valid[:, None, None, None, :], scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bghqk,bkgd->bqghd", p.to(cv.dtype), cv)
+
+
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype,
                device="cuda") -> KVCache:
     shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
@@ -273,6 +300,10 @@ def attn_apply(params, cfg: ArchConfig, x, *, causal: bool = True,
         if chunk_offset is not None:
             positions = positions + chunk_offset
 
+    if row_split(params["wq"]) is not None:
+        return _attn_split(params, cfg, x, causal, window, positions, cache,
+                           kv_x, chunk_offset)
+
     q = (x @ params["wq"]).reshape(b, s, g, hg, hd)
     src = x if kv_x is None else kv_x
     sk = src.shape[1]
@@ -295,16 +326,7 @@ def attn_apply(params, cfg: ArchConfig, x, *, causal: bool = True,
         ck, cv = cache
         ck[rows, idx] = k[:, 0].to(ck.dtype)
         cv[rows, idx] = v[:, 0].to(cv.dtype)
-        scores = torch.einsum("bqghd,bkgd->bghqk", (q * hd ** -0.5).float(),
-                              ck.float())
-        scores = _softcap(scores, cfg.logit_softcap)
-        kpos = torch.arange(ck.shape[1], device=x.device)
-        valid = kpos[None, :] <= idx[:, None]              # [B, S]
-        if window is not None:
-            valid &= kpos[None, :] > (idx[:, None] - window)
-        scores = torch.where(valid[:, None, None, None, :], scores, _NEG)
-        p = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bghqk,bkgd->bqghd", p.to(cv.dtype), cv)
+        out = _decode_dense(q, ck, cv, idx, window, cfg.logit_softcap)
     elif chunk_offset is not None and cache is not None:
         # ---- chunked prefill: append W positions, attend over the cache --
         ck, cv = cache
@@ -328,3 +350,119 @@ def attn_apply(params, cfg: ArchConfig, x, *, causal: bool = True,
 
     y = out.reshape(b, s, cfg.q_dim) @ params["wo"]
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over a data row's ``model`` positions
+# ---------------------------------------------------------------------------
+
+def head_bounds(n_heads: int, n_kv: int, m: int):
+    """Each of ``m`` positions' query heads [h0, h1) (``even_bounds``)
+    and the kv groups [g0, g1) they read.  A position's heads lie in one
+    group or cover whole groups; anything else raises."""
+    hg = n_heads // max(n_kv, 1)
+    out = []
+    for h0, h1 in even_bounds(n_heads, m):
+        if h0 == h1:
+            out.append(((h0, h1), (h0 // hg, h0 // hg)))
+            continue
+        g0, g1 = h0 // hg, (h1 - 1) // hg + 1
+        if g1 - g0 > 1 and (h0 % hg or h1 % hg):
+            raise ValueError(f"heads [{h0}, {h1}) span part of a kv group "
+                             f"of {hg} heads")
+        out.append(((h0, h1), (g0, g1)))
+    return out
+
+
+def _attn_split(params, cfg: ArchConfig, x, causal, window, positions,
+                cache, kv_x, chunk_offset):
+    """``attn_apply`` over a row's positions (module docstring)."""
+    tp = row_split(params["wq"])
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    hg = cfg.n_heads // max(cfg.n_kv_heads, 1)
+    src = x if kv_x is None else kv_x
+    sk = src.shape[1]
+    xs = tp.spread(x)
+    srcs = xs if kv_x is None else tp.spread(kv_x)
+    heads = head_bounds(cfg.n_heads, cfg.n_kv_heads, tp.m)
+    hb, gb = [h for h, _ in heads], [g for _, g in heads]
+
+    def project(name, inputs, bounds):
+        w = params[name]
+        return tp.columns([inputs[j] @ w.block(j) for j in range(tp.m)], w,
+                          [(lo * hd, hi * hd) for lo, hi in bounds])
+
+    q = [t.reshape(b, s, max(g1 - g0, 1), (h1 - h0) // max(g1 - g0, 1),
+                   hd) for t, (h0, h1), (g0, g1) in
+         zip(project("wq", xs, hb), hb, gb)]
+    k = [t.reshape(b, sk, g1 - g0, hd) for t, (g0, g1) in
+         zip(project("wk", srcs, gb), gb)]
+    v = [t.reshape(b, sk, g1 - g0, hd) for t, (g0, g1) in
+         zip(project("wv", srcs, gb), gb)]
+    if kv_x is None:                   # self-attention: rotary on q and k
+        cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+        cs, ss = tp.spread(cos), tp.spread(sin)
+        q = [apply_rope(t, c_, s_) for t, c_, s_ in zip(q, cs, ss)]
+        k = [apply_rope(t[:, :, :, None], c_, s_)[:, :, :, 0]
+             for t, c_, s_ in zip(k, cs, ss)]
+
+    def whole(parts, bounds):
+        """The gathered kv groups (or heads) from the positions' parts,
+        each group once."""
+        seen, keep = set(), []
+        for t, (lo, hi) in zip(parts, bounds):
+            if hi > lo and (lo, hi) not in seen:
+                seen.add((lo, hi))
+                keep.append(t)
+        return tp.gather(keep, 2)
+
+    if cache is not None and s == 1 and isinstance(cache.k, SeqBlocks):
+        qw = whole([t.flatten(2, 3) for t in q], hb)
+        out = _decode_blocks(cache, qw.reshape(b, s, cfg.n_kv_heads, hg, hd),
+                             whole(k, gb), whole(v, gb),
+                             positions[:, 0].long(), window,
+                             cfg.logit_softcap)
+        y = tp.rows_product(out.reshape(b, s, cfg.q_dim), params["wo"])
+        return y, cache
+    if cache is not None:
+        kw, vw = whole(k, gb), whole(v, gb)
+        if s == 1 or chunk_offset is not None:   # a cache on the home
+            ck, cv = cache
+            if s == 1:
+                idx = positions[:, 0].long()
+                rows = torch.arange(b, device=x.device)
+                ck[rows, idx] = kw[:, 0].to(ck.dtype)
+                cv[rows, idx] = vw[:, 0].to(cv.dtype)
+            else:
+                ck[:, chunk_offset:chunk_offset + s] = kw.to(ck.dtype)
+                cv[:, chunk_offset:chunk_offset + s] = vw.to(cv.dtype)
+            k = tp.scatter(ck, gb, 2)
+            v = tp.scatter(cv, gb, 2)
+        elif isinstance(cache.k, SeqBlocks):
+            cache.k.write_prefix(kw)
+            cache.v.write_prefix(vw)
+        else:                                    # prefill: [0, S)
+            cache.k[:, :s] = kw.to(cache.k.dtype)
+            cache.v[:, :s] = vw.to(cache.v.dtype)
+    o = []
+    for j in range(tp.m):
+        if hb[j][0] == hb[j][1]:
+            o.append(q[j].new_zeros((b, s, 0)))
+            continue
+        if cache is not None and s == 1:
+            idx = positions[:, 0].long().to(q[j].device)
+            oj = _decode_dense(q[j], k[j], v[j], idx, window,
+                               cfg.logit_softcap)
+        elif cache is not None and chunk_offset is not None:
+            oj = chunked_attention(
+                q[j], k[j].to(q[j].dtype), v[j].to(q[j].dtype),
+                causal=True, window=window, softcap=cfg.logit_softcap,
+                q_offset=chunk_offset)
+        else:
+            oj = chunked_attention(
+                q[j], k[j], v[j], causal=causal and kv_x is None,
+                window=window, softcap=cfg.logit_softcap)
+        o.append(oj.reshape(b, s, -1))
+    return tp.rows_product(o, params["wo"], [(h0 * hd, h1 * hd)
+                                             for h0, h1 in hb]), cache

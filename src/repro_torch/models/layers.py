@@ -8,6 +8,14 @@ activation dtype rounds to that dtype, a norm works in float32 and
 rounds once at the end.  Draws come from an explicit
 ``torch.Generator``; they cannot match ``jax.random``'s bits, only its
 distributions.
+
+Under a data row's tensor parallelism (``dist.sharding.RowSplit``: the
+parameters are ``Blocks``) each position computes its own blocks: an
+MLP's gate and up columns and its ``wo`` rows (the row sums the partial
+outputs), a vocab-split table's rows for a lookup (summed) and for the
+logits (gathered).  A leaf whose ``model`` split was dropped
+(``sanitize_spec``) is computed whole on every position, as SPMD does,
+and the home's copy is kept.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import home, row_split
 from repro_torch.models.arch_config import ArchConfig
 
 #: the standard normal's CDF at the truncation points -2 and 2
@@ -87,6 +96,7 @@ def norm_init(cfg: ArchConfig, dtype, device="cuda") -> torch.Tensor:
 def apply_norm(scale, x, kind: str = "rmsnorm", eps: float = 1e-6):
     """RMSNorm (gemma convention: weight stored as scale-1) or LayerNorm,
     in f32."""
+    scale = home(scale)
     xf = x.float()
     if kind == "rmsnorm":
         var = xf.square().mean(-1, keepdim=True)
@@ -115,6 +125,16 @@ def mlp_init(generator, cfg: ArchConfig, dtype, d_ff: int | None = None,
 
 
 def apply_mlp(params, x, act: str = "swiglu"):
+    tp = row_split(params["wo"])
+    if tp is None:
+        return _mlp(params, x, act)
+    xs = tp.spread(x)
+    parts = [_mlp({k: w.block(j) for k, w in params.items()}, xs[j], act)
+             for j in range(tp.m)]
+    return parts[0] if params["wo"].dim is None else tp.sum(parts)
+
+
+def _mlp(params, x, act: str):
     up = x @ params["wi_up"]
     if act == "swiglu":
         h = F.silu(x @ params["wi_gate"]) * up
@@ -146,16 +166,20 @@ def embed_apply(embed, tokens, scale_by_dim: bool = True,
     vocab-sharded table under a mesh, a one-hot matrix (an iota
     comparison, in the table's dtype) times the table: a contraction in
     both directions, and bit-equal to the gather (each output is one
-    product by 1.0 and zeros)."""
-    if mode == "onehot":
-        vids = torch.arange(embed.shape[0], dtype=torch.int32,
-                            device=tokens.device)
-        onehot = (tokens[..., None] == vids).to(embed.dtype)
-        x = onehot @ embed
-    elif mode == "take":
-        x = embed[tokens.long()]
+    product by 1.0 and zeros).
+
+    A vocab-split ``Blocks`` table: each position looks up the tokens of
+    its own vocab range (a masked gather, or the one-hot product over its
+    rows) and the row sums the positions' parts, each output one value
+    and zeros."""
+    tp = row_split(embed)
+    if tp is not None and embed.dim == 0:
+        toks = tp.spread(tokens)
+        parts = [_lookup(embed.block(j), toks[j], mode, embed.bounds[j][0])
+                 for j in range(tp.m)]
+        x = tp.sum(parts)
     else:
-        raise ValueError(f"unknown embedding mode {mode!r}")
+        x = _lookup(home(embed), tokens, mode)
     if scale_by_dim:
         # sqrt(d) is rounded to the activation dtype before the multiply
         # (45.25 in bf16 for d=2048), as the reference does
@@ -164,10 +188,34 @@ def embed_apply(embed, tokens, scale_by_dim: bool = True,
     return x
 
 
+def _lookup(embed, tokens, mode: str, lo=None):
+    """The table's rows for ``tokens``; where ``embed`` holds only rows
+    [lo, lo + len) of it, zeros for a token outside them."""
+    hi = embed.shape[0] + (lo or 0)
+    if mode == "onehot":
+        vids = torch.arange(lo or 0, hi, dtype=torch.int32,
+                            device=tokens.device)
+        onehot = (tokens[..., None] == vids).to(embed.dtype)
+        return onehot @ embed
+    if mode != "take":
+        raise ValueError(f"unknown embedding mode {mode!r}")
+    if lo is None:
+        return embed[tokens.long()]
+    mine = (tokens >= lo) & (tokens < hi)
+    rows = embed[(tokens.long() - lo).clamp(0, hi - lo - 1)]
+    return torch.where(mine[..., None], rows, 0)
+
+
 def unembed_apply(cfg: ArchConfig, params, x):
     """Logits over the padded vocab (tied or separate head), f32."""
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = (x @ table.T).float()
+    tp = row_split(table)
+    if tp is None:
+        logits = (x @ table.T).float()
+    else:
+        xs = tp.spread(x)
+        parts = [(xs[j] @ table.block(j).T).float() for j in range(tp.m)]
+        logits = parts[0] if table.dim is None else tp.gather(parts, -1)
     if cfg.final_softcap:
         c = cfg.final_softcap
         logits = c * torch.tanh(logits / c)

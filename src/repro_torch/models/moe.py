@@ -14,6 +14,11 @@ Under a mesh with a ``model`` axis that divides the experts,
 ``_moe_local`` on its own device over its expert shard and the row's
 tokens, and the partial outputs are summed over ``model``.
 
+Under a serving step's tensor parallelism (the parameters are
+``dist.sharding.Blocks``) each position reads its own experts' block and
+the router whole, as the reference's ``shard_map`` takes it (replicated,
+``in_specs`` ``P()``): every position routes the row's tokens.
+
 Matching the reference's semantics where torch's defaults differ:
 
 * ``lax.top_k`` breaks ties toward the lower index: a stable descending
@@ -33,8 +38,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import (Mesh, current_mesh, current_row,
-                                       link_kind, pmean, rows, spec)
+from repro_torch.dist.sharding import (Blocks, Mesh, current_mesh,
+                                       current_row, home, link_kind, pmean,
+                                       row_split, rows, spec)
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.layers import truncated_normal
 
@@ -69,7 +75,7 @@ def moe_apply(params, cfg: ArchConfig, x) -> Tuple[torch.Tensor,
     if mesh is not None and "model" in mesh.axis_names \
             and cfg.n_experts % mesh.shape["model"] == 0:
         return moe_apply_dist(params, cfg, x, mesh)
-    return _moe_local(params, cfg, x)
+    return _moe_local({k: home(w) for k, w in params.items()}, cfg, x)
 
 
 def _moe_local(params, cfg: ArchConfig, x,
@@ -142,7 +148,12 @@ def _ep_row(params, cfg: ArchConfig, x, devices, n_local: int):
     ``model`` order) runs ``_moe_local`` over its expert shard and the
     row's tokens on its own device; the partial outputs are summed in
     position order on ``x``'s device (the psum over ``model``).  Every
-    position routes the same tokens, so the row's aux is position 0's."""
+    position routes the same tokens, so the row's aux is position 0's.
+    ``Blocks`` parameters (a serving step's row split): position m's
+    experts are its own block, which must be [lo, lo + n_local)."""
+    tp = row_split(params["wi_gate"])
+    if tp is not None:
+        return _ep_blocks(params, cfg, x, tp, n_local)
     ys, aux = [], None
     for m, dev in enumerate(devices):
         lo = m * n_local
@@ -157,6 +168,25 @@ def _ep_row(params, cfg: ArchConfig, x, devices, n_local: int):
     for part in ys[1:]:
         y = y + part
     return y, aux
+
+
+def _ep_blocks(params, cfg: ArchConfig, x, tp, n_local: int):
+    """``_ep_row`` on a row split's ``Blocks``."""
+    xs = tp.spread(x)
+    ys, aux = [], None
+    for m in range(tp.m):
+        lo = m * n_local
+        local = {"router": params["router"].whole_at(m)}
+        for name in ("wi_gate", "wi_up", "wo"):
+            w: Blocks = params[name]
+            if w.dim != 0 or w.bounds[m] != (lo, lo + n_local):
+                raise ValueError(f"{name}: position {m}'s block is not "
+                                 f"experts [{lo}, {lo + n_local})")
+            local[name] = w.block(m)
+        y, a = _moe_local(local, cfg, xs[m], experts_slice=(lo, n_local))
+        ys.append(y)
+        aux = a if aux is None else aux
+    return tp.sum(ys), aux.to(x.device)
 
 
 def moe_apply_dist(params, cfg: ArchConfig, x, mesh: Mesh

@@ -24,6 +24,13 @@ JAX package's ``models/transformer.py``).
   ``launch/train.py`` and ``launch/serve.py`` run a data row's share of
   the batch through these functions) an untied table is looked up
   one-hot (``_embed_mode``) and an MoE layer runs expert-parallel.
+* **Tensor parallelism.**  The serving steps on a mesh pass a data
+  row's ``dist.sharding.Blocks`` view of the placed parameters: each
+  block function then computes its own blocks on the row's positions
+  (``layers``, ``attention``, ``moe``, ``mamba2``, ``xlstm``).  A
+  group's slice of a stacked leaf (and the shared attention, each group
+  anew) is read when the group runs and freed with it; a leaf outside
+  the stack when it is used.
 
 Serving entry points (``prefill``, ``prefill_chunked``, ``decode_step``)
 run under ``torch.inference_mode()``; ``forward`` and ``loss_fn`` keep
@@ -40,10 +47,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import current_context, current_mesh, entered
+from repro_torch.dist.sharding import (Blocks, current_context,
+                                       current_mesh, entered, row_split)
 from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.arch_config import ArchConfig
-from repro_torch.models.attention import attn_apply, attn_init, init_cache
+from repro_torch.models.attention import (attn_apply, attn_init,
+                                          head_bounds, init_cache)
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_apply,
                                        embed_init, mlp_init, norm_init,
                                        softmax_xent, unembed_apply)
@@ -260,6 +269,9 @@ def _group(cfg: ArchConfig, params, r: int, x, aux, mode: str, caches,
     """Pattern group ``r`` (the reference's scan body).  Returns
     (x, aux)."""
     shared = params.get("shared_attn")
+    if shared is not None:
+        shared = tree_map(lambda w: w.again() if isinstance(w, Blocks)
+                          else w, shared)
     gp = _slice(params["stack"], r)
     if cfg.enc_dec:
         gp["cross"] = _slice(params["cross"], r)
@@ -308,13 +320,36 @@ def _cross_decode(ap, cfg: ArchConfig, h, cross_cache):
     g = cfg.n_kv_heads
     hg = cfg.n_heads // max(g, 1)
     hd = cfg.head_dim
-    q = (h @ ap["wq"]).reshape(b, s, g, hg, hd)
     ck, cv = cross_cache
+    tp = row_split(ap["wq"])
+    if tp is None:
+        q = (h @ ap["wq"]).reshape(b, s, g, hg, hd)
+        return _cross_scores(q, ck, cv).reshape(b, s, cfg.q_dim) \
+            @ ap["wo"], None
+    # each position its heads against its kv groups of the cross cache
+    heads = head_bounds(cfg.n_heads, g, tp.m)
+    hs = tp.spread(h)
+    qs = tp.columns([hs[j] @ ap["wq"].block(j) for j in range(tp.m)],
+                    ap["wq"], [(h0 * hd, h1 * hd) for (h0, h1), _ in heads])
+    cks = tp.scatter(ck, [gr for _, gr in heads], 2)
+    cvs = tp.scatter(cv, [gr for _, gr in heads], 2)
+    outs = []
+    for j, ((h0, h1), (g0, g1)) in enumerate(heads):
+        if h1 == h0:
+            outs.append(qs[j].new_zeros((b, s, 0)))
+            continue
+        q = qs[j].reshape(b, s, g1 - g0, (h1 - h0) // (g1 - g0), hd)
+        outs.append(_cross_scores(q, cks[j], cvs[j]).reshape(b, s, -1))
+    return tp.rows_product(outs, ap["wo"], [(h0 * hd, h1 * hd)
+                                            for (h0, h1), _ in heads]), None
+
+
+def _cross_scores(q, ck, cv):
+    hd = q.shape[-1]
     scores = torch.einsum("bqghd,bkgd->bghqk", (q * hd ** -0.5).float(),
                           ck.float())
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bghqk,bkgd->bqghd", p.to(cv.dtype), cv)
-    return out.reshape(b, s, cfg.q_dim) @ ap["wo"], None
+    return torch.einsum("bghqk,bkgd->bqghd", p.to(cv.dtype), cv)
 
 
 # ---------------------------------------------------------------------------
@@ -469,9 +504,16 @@ def _precompute_cross(cfg: ArchConfig, params, enc_out):
     b, se, _ = enc_out.shape
     shape = (cfg.pattern_reps, b, se, cfg.n_kv_heads, cfg.head_dim)
     attn = params["cross"]["attn"]
-    k = torch.einsum("bsd,rdk->rbsk", enc_out, attn["wk"]).reshape(shape)
-    v = torch.einsum("bsd,rdk->rbsk", enc_out, attn["wv"]).reshape(shape)
-    return enc_out, (k, v)
+    tp = row_split(attn["wk"])
+    if tp is None:
+        k = torch.einsum("bsd,rdk->rbsk", enc_out, attn["wk"]).reshape(shape)
+        v = torch.einsum("bsd,rdk->rbsk", enc_out, attn["wv"]).reshape(shape)
+        return enc_out, (k, v)
+    # a layer at a time, each position its columns, gathered on the home
+    return enc_out, tuple(torch.stack([
+        tp.columns_product(enc_out, attn[name][r])
+        for r in range(cfg.pattern_reps)]).reshape(shape)
+        for name in ("wk", "wv"))
 
 
 @torch.inference_mode()

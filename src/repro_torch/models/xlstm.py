@@ -16,6 +16,14 @@ The score and PV products ask for f32 results in the reference
 (``preferred_element_type``): their operands are upcast here.  The
 forget gates' prefix sum adds in XLA's order (``layers.scan_cumsum``);
 ``log_sigmoid`` is the reference's (``layers.log_sigmoid``).
+
+Under a data row's tensor parallelism (``dist.sharding.Blocks``
+parameters) each position projects its columns of q, k, v (mLSTM) and
+of the gate inputs (``w_if``, ``w_x``); the gate fields cut across
+the blocks, so the row gathers them on its home.  Position j runs the
+recurrences of its heads (``even_bounds``): the mLSTM chunks and state,
+and each sLSTM step's recurrent product, whose outputs the home gathers
+for the cell.  ``wo``'s row blocks end the mLSTM.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import even_bounds, home, row_split
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.layers import dense_init, log_sigmoid, \
     scan_cumsum, truncated_normal
@@ -74,17 +83,61 @@ def mlstm_apply(params, cfg: ArchConfig, x, *, chunk: int = 256
     q = min(chunk, s)
     if s % q:
         raise ValueError(f"sequence {s} is not a multiple of chunk {q}")
-    nc = s // q
-    dev = x.device
-
-    qh = (x @ params["wq"]).reshape(b, s, h, p)
-    kh = (x @ params["wk"]).reshape(b, s, h, p)
-    vh = (x @ params["wv"]).reshape(b, s, h, p)
-    gates = x.float() @ params["w_if"] + params["b_if"]
+    tp = row_split(params["wq"])
+    gates = _gates(params, x, "w_if") + home(params["b_if"])
     li = gates[..., :h]                                   # log input gate
     lf = log_sigmoid(gates[..., h:])                      # log forget gate
-
     f_cum = scan_cumsum(lf, 1)                            # [B, S, H]
+    if tp is None:
+        qh, kh, vh = ((x @ params[k]).reshape(b, s, h, p)
+                      for k in ("wq", "wk", "wv"))
+        y, state = _mlstm_heads(qh, kh, vh, li, f_cum, q, x.dtype)
+        return y @ params["wo"], state
+    hb = even_bounds(h, tp.m)
+    qkv = _head_parts(tp, params, x, hb, p)
+    lis, fs = tp.scatter(li, hb, 2), tp.scatter(f_cum, hb, 2)
+    ys, states = [], []
+    for j, (h0, h1) in enumerate(hb):
+        if h1 == h0:
+            ys.append(qkv[0][j].new_zeros((b, s, 0)).to(x.dtype))
+            continue
+        y, st = _mlstm_heads(*(t[j].reshape(b, s, h1 - h0, p) for t in qkv),
+                             lis[j], fs[j], q, x.dtype)
+        ys.append(y)
+        states.append(st)
+    y = tp.rows_product(ys, params["wo"], [(h0 * p, h1 * p) for h0, h1 in hb])
+    return y, MLSTMCache(*(tp.gather([st[i] for st in states], 1)
+                           for i in range(3)))
+
+
+def _gates(params, x, name: str):
+    """``x @ params[name]`` in float32, on the home (gathered over a row's
+    positions: the gate fields cut across the column blocks)."""
+    w = params[name]
+    tp = row_split(w)
+    if tp is None:
+        return x.float() @ w.float()
+    return tp.columns_product(x, w, f32=True)
+
+
+def _head_parts(tp, params, x, hb, p: int):
+    """Each position's heads ``hb[j]`` of x @ wq, wk, wv."""
+    xs = tp.spread(x)
+    out = []
+    for name in ("wq", "wk", "wv"):
+        w = params[name]
+        out.append(tp.columns([xs[j] @ w.block(j) for j in range(tp.m)], w,
+                              [(h0 * p, h1 * p) for h0, h1 in hb]))
+    return out
+
+
+def _mlstm_heads(qh, kh, vh, li, f_cum, q: int, dtype):
+    """The chunked parallel form over the heads of ``qh``, ``kh``, ``vh``
+    [B, S, H, P] with their gates ``li``, ``f_cum`` [B, S, H]: (y [B, S,
+    H P] in ``dtype``, the final state)."""
+    b, s, h, p = qh.shape
+    nc = s // q
+    dev = qh.device
     col = li - f_cum                                      # I_j - F_j
 
     qc = (qh * p ** -0.5).reshape(b, nc, q, h, p).float()
@@ -116,8 +169,7 @@ def mlstm_apply(params, cfg: ArchConfig, x, *, chunk: int = 256
             m = m_new
         denom = torch.maximum(l.abs(), torch.exp(-m))
         outs.append((acc / denom[..., None]).transpose(1, 2))  # [B,q,H,p]
-    y = torch.cat(pad(outs, nc), dim=1).reshape(b, s, d).to(x.dtype)
-    y = y @ params["wo"]
+    y = torch.cat(pad(outs, nc), dim=1).reshape(b, s, h * p).to(dtype)
 
     # final recurrent state (for prefill -> decode handoff)
     m_fin = f_cum[:, -1, :, None] - f_cum.transpose(1, 2) \
@@ -137,12 +189,37 @@ def mlstm_decode(params, cfg: ArchConfig, x, cache: MLSTMCache
     b, _, d = x.shape
     h = cfg.n_heads
     p = d // h
-    qh = (x @ params["wq"]).reshape(b, h, p)
-    kh = (x @ params["wk"]).reshape(b, h, p)
-    vh = (x @ params["wv"]).reshape(b, h, p)
-    gates = (x.float() @ params["w_if"])[:, 0] + params["b_if"]
+    tp = row_split(params["wq"])
+    gates = _gates(params, x, "w_if")[:, 0] + home(params["b_if"])
     li, lf = gates[..., :h], log_sigmoid(gates[..., h:])
+    if tp is None:
+        qh, kh, vh = ((x @ params[k]).reshape(b, h, p)
+                      for k in ("wq", "wk", "wv"))
+        y, state = _mlstm_step(qh, kh, vh, li, lf, cache)
+        return y.reshape(b, 1, d).to(x.dtype) @ params["wo"], state
+    hb = even_bounds(h, tp.m)
+    qkv = _head_parts(tp, params, x, hb, p)
+    parts = zip(tp.scatter(li, hb, 1), tp.scatter(lf, hb, 1),
+                *(tp.scatter(c, hb, 1) for c in cache))
+    ys, states = [], []
+    for j, ((h0, h1), (li_, lf_, *st)) in enumerate(zip(hb, parts)):
+        if h1 == h0:
+            ys.append(qkv[0][j].new_zeros((b, 1, 0)).to(x.dtype))
+            continue
+        y, st = _mlstm_step(*(t[j].reshape(b, h1 - h0, p) for t in qkv),
+                            li_, lf_, MLSTMCache(*st))
+        ys.append(y.reshape(b, 1, -1).to(x.dtype))
+        states.append(st)
+    y = tp.rows_product(ys, params["wo"], [(h0 * p, h1 * p) for h0, h1 in hb])
+    return y, MLSTMCache(*(tp.gather([st[i] for st in states], 1)
+                           for i in range(3)))
 
+
+def _mlstm_step(qh, kh, vh, li, lf, cache: MLSTMCache):
+    """One token of the recurrence over the heads of ``qh``, ``kh``,
+    ``vh`` [B, H, P] and their gates and state: (y [B, H, P] float32,
+    the new state)."""
+    p = qh.shape[-1]
     m_new = torch.maximum(lf + cache.m, li)
     f_eff = torch.exp(lf + cache.m - m_new)[..., None]
     i_eff = torch.exp(li - m_new)[..., None]
@@ -155,8 +232,7 @@ def mlstm_decode(params, cfg: ArchConfig, x, cache: MLSTMCache
     num = torch.einsum("bhp,bhpq->bhq", qf, c_new)
     den = torch.maximum(torch.einsum("bhp,bhp->bh", qf, n_new).abs(),
                         torch.exp(-m_new))
-    y = (num / den[..., None]).reshape(b, 1, d).to(x.dtype)
-    return y @ params["wo"], MLSTMCache(c=c_new, n=n_new, m=m_new)
+    return num / den[..., None], MLSTMCache(c=c_new, n=n_new, m=m_new)
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +275,16 @@ def _slstm_cell(params, cfg: ArchConfig, xt, cache: SLSTMCache):
     h = cfg.n_heads
     p = d // h
     hh = cache.h.reshape(b, h, p)
-    rec = torch.einsum("bhp,hpq->bhq", hh, params["r_h"]).reshape(b, 4 * d)
-    g = xt + rec + params["bias"]
+    r_h = params["r_h"]
+    tp = row_split(r_h)
+    if tp is None:
+        rec = torch.einsum("bhp,hpq->bhq", hh, r_h)
+    else:                  # each position its heads' recurrent product
+        hb = even_bounds(h, tp.m)
+        rec = tp.gather([torch.einsum("bhp,hpq->bhq", hh_, r_h.block(j)[
+            h0:h1]) for j, (hh_, (h0, h1)) in enumerate(zip(
+                tp.scatter(hh, hb, 1), hb)) if h1 > h0], 1)
+    g = xt + rec.reshape(b, 4 * d) + home(params["bias"])
     z = torch.tanh(g[:, :d])
     li = g[:, d:2 * d]                       # log-space input gate
     lf = log_sigmoid(g[:, 2 * d:3 * d])
@@ -222,7 +306,7 @@ def slstm_apply(params, cfg: ArchConfig, x, *,
     b, s, d = x.shape
     if cache is None:
         cache = init_slstm_cache(cfg, b, x.device)
-    xg = x.float() @ params["w_x"].float()
+    xg = _gates(params, x, "w_x")
     hs = []
     for t in trips("slstm.steps", s):
         cache = _slstm_cell(params, cfg, xg[:, t], cache)
@@ -232,6 +316,6 @@ def slstm_apply(params, cfg: ArchConfig, x, *,
 
 def slstm_decode(params, cfg: ArchConfig, x, cache: SLSTMCache
                  ) -> Tuple[torch.Tensor, SLSTMCache]:
-    xg = (x.float() @ params["w_x"].float())[:, 0]
+    xg = _gates(params, x, "w_x")[:, 0]
     new = _slstm_cell(params, cfg, xg, cache)
     return new.h[:, None, :].to(x.dtype), new

@@ -13,12 +13,13 @@
   (``tests/torch_dryrun_ref.py``, one subprocess): each position's
   argument bytes equal the reference's ``argument_size_in_bytes``
   exactly.  FLOPs: the reference splits every product evenly over the
-  mesh (GSPMD), so its per-device FLOPs times 8 are its whole program's;
-  the port computes a data row's dense blocks on the row's first
-  position and splits only the MoE experts and the decode over sequence
-  blocks, so its per-position figures are uneven by design.  Summed over
-  the positions, the port's prefill and decode FLOPs equal the
-  reference's per-device FLOPs times 8 exactly.  The reference's train
+  mesh (GSPMD), so its per-device FLOPs times 8 are its whole program's.
+  The port's serving steps split each product over a data row's
+  ``model`` positions as GSPMD does: each position's prefill and decode
+  FLOPs equal the reference's per-device FLOPs exactly (and their sum
+  its FLOPs times 8).  The port's train step computes a data row's dense
+  blocks on the row's first position and splits only the MoE experts,
+  so its per-position figures are uneven by design.  The reference's train
   step runs each microbatch's forward twice (the loss, then inside
   ``jax.grad``; ``tests/test_torch_dryrun_flops.py``), so the port's
   train FLOPs summed over positions are held to the port's one-device
@@ -249,6 +250,19 @@ def test_lowering_matches_reference_on_2x4(ref, arch, kind):
         assert total == one.total_flops()
 
 
+@pytest.mark.parametrize("arch,kind", [c for c in R.LOWER
+                                       if c[1] != "train"])
+def test_each_position_computes_the_reference_per_device_flops(ref, arch,
+                                                               kind):
+    """The serving steps split every product over a row's ``model``
+    positions as GSPMD splits the reference's: each position's FLOPs
+    equal the reference's per-device count."""
+    want = ref["ref"][f"{arch}/{kind}"]["flops"]
+    mesh = fake_mesh(sh.abstract_mesh((2, 4), ("data", "model")))
+    _, cnt = lowered(reduced_config(arch), kind, mesh).trace()
+    assert [cnt.stats(d).flops for d in mesh.devices] == [want] * 8
+
+
 @pytest.mark.parametrize("arch", list(R.CHUNKED))
 def test_mesh_chunked_prefill_matches_reference(ref, arch):
     d = ref[f"chunked_{arch}"]
@@ -361,9 +375,11 @@ def test_run_cell_at_a_reduced_config(small_cells, tmp_path):
         "mfu_bound"}
     assert set(res["collectives"]) == set(trace_stats.COLLECTIVES)
     pos = res["by_position"]
-    # a row's dense compute runs on its first position's device
+    # each position computes its own blocks (tensor parallelism over
+    # model): the even share of the cell's FLOPs on every position
     assert pos["flops"]["argmax"] % 16 == 0
-    assert res["cost"]["flops"] == pos["flops"]["max"] > pos["flops"]["min"]
+    assert res["cost"]["flops"] == pos["flops"]["max"] == pos["flops"][
+        "min"] == pos["flops"]["sum"] // 256
     mem = res["memory"]
     assert mem["per_device_total"] == pos["peak_bytes"]["max"]
     assert mem["per_device_total"] == (mem["argument_size_in_bytes"]
